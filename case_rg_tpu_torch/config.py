@@ -1,0 +1,43 @@
+"""Model configuration: the port's own copy of ``case_rg_tpu.config.
+ModelConfig`` (same fields and defaults, so a JAX config's values carry
+over one for one)."""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture knobs shared by the six models."""
+
+    name: str = "case"
+    vocab_size: int = 0           # filled in from the vocabulary at build time
+    # special-token ids (corpus-vocab defaults; overridden from the vocab)
+    pad_id: int = 0
+    bos_id: int = 1
+    unk_id: int = 2
+    eos_id: int = 3
+    embedding_size: int = 256
+    hidden_size: int = 256
+    num_heads: int = 8
+    enc_layers: int = 3           # TransformerSeqEncoder depth (CaSE/Model.py:261)
+    dec_layers: int = 4           # per-memory decoder depth (CaSE/Model.py:265)
+    num_memories: int = 2
+    tmemnet_layers: int = 8       # TMemNet enc/dec depth (TMemNet/Model.py:52,110)
+    dropout: float = 0.1
+    gru_dropout: float = 0.5      # baselines' embedding dropout (S2SA/Model.py:62)
+    max_target_length: int = 40
+    max_dec_len: int = 40
+    beam_width: int = 1
+    max_span_size: int = 4
+    min_window_size: int = 4      # GLKS
+    num_windows: int = 1          # GLKS
+    label_smoothing: float = 0.0
+    # numerics
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"   # "bfloat16" for serving on the card
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,18 @@
+"""Device resolution for the port's entry points.
+
+The entry points default to ``device="cuda"``. Without a card they raise
+instead of running on the CPU; the CPU is used only when a caller asks for
+it (the tests do)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device="cuda") -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "case_rg_tpu_torch: a CUDA device was requested but torch sees "
+            "none; pass device='cpu' to run on the CPU")
+    return dev

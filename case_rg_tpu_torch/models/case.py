@@ -1,0 +1,103 @@
+"""CaSE — the paper model: relevant passage selection, supporting token
+identification, and copy-augmented response generation (port of
+``case_rg_tpu/models/case.py``, inference half).
+
+The three stages share one 3-layer transformer encoder; the decoder is the
+2-memory copy decoder with the answer-vector feature.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+
+from ..config import ModelConfig
+from ..ops.masking import padding_mask
+from .components import TransformerSeqEncoder
+from .multimem import MultiMemoryDecoder
+from .towers import InteractionTower
+
+_LN_EPS = 1e-5
+
+
+class CaSEModel(nn.Module):
+    def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        c = cfg
+        self.cfg = cfg
+        d = c.hidden_size
+        self.encoder = TransformerSeqEncoder(c.enc_layers, c.num_heads,
+                                             c.vocab_size, d, **kw)
+        self.ps_tower = InteractionTower(d, c.num_heads, query_blocks=3,
+                                         passage_blocks=5, **kw)
+        self.ps_scorer = nn.Linear(d, 1, **kw)
+        self.sti_tower = InteractionTower(d, c.num_heads, query_blocks=2,
+                                          passage_blocks=3, **kw)
+        self.sti_scorer = nn.Linear(d, 1, **kw)
+        self.sti_norm_q = nn.LayerNorm(d, eps=_LN_EPS, **kw)
+        self.sti_norm_p = nn.LayerNorm(d, eps=_LN_EPS, **kw)
+        self.decoder = MultiMemoryDecoder(
+            c.vocab_size, d, c.num_heads, c.dec_layers, num_memories=2,
+            use_feature=True, bos_id=c.bos_id, eos_id=c.eos_id, **kw)
+
+    def _encode_select(self, batch):
+        q_ids, p_ids = batch["query"], batch["passage"]
+        q_keep, p_keep = padding_mask(q_ids), padding_mask(p_ids)
+        enc_q, _ = self.encoder(q_ids)
+        enc_p, _ = self.encoder(p_ids)
+        q1, p1 = self.ps_tower(enc_q, enc_p, q_keep, p_keep)
+        passage_score = self.ps_scorer(p1[:, :, 0])[..., 0]      # [B, P]
+        return q1, p1, q_keep, p_keep, passage_score
+
+    def stages(self, batch) -> Dict[str, torch.Tensor]:
+        """Encode + passage selection + token identification. Returns
+        passage_score [B, P], token_score [B, P, Lp], and the updated reps
+        feeding generation."""
+        q1, p1, q_keep, p_keep, passage_score = self._encode_select(batch)
+        q2, p2 = self.sti_tower(q1, p1, q_keep, p_keep)
+        token_score = self.sti_scorer(p2)[..., 0]                # [B, P, Lp]
+        token_score = torch.where(p_keep, token_score, torch.full(
+            (), -1e6, dtype=token_score.dtype, device=token_score.device))
+        token_score = token_score.clamp(-1e6, 1e6)
+        return {"passage_score": passage_score, "token_score": token_score,
+                "q_reps": self.sti_norm_q(q1 + q2),
+                "p_reps": self.sti_norm_p(p1 + p2),
+                "q_keep": q_keep, "p_keep": p_keep}
+
+    def _decoder_inputs(self, batch, st):
+        """Prior construction + answer vector (ref: ResponseGeneration.action,
+        CaSE/Model.py:230-253)."""
+        b = batch["query"].shape[0]
+        d = self.cfg.hidden_size
+        prior_p = (torch.sigmoid(st["passage_score"])[:, :, None]
+                   * torch.sigmoid(st["token_score"]))         # [B, P, Lp]
+        flat = prior_p.reshape(b, -1)
+        flat = flat / (1e-8 + flat.sum(dim=-1, keepdim=True))
+        p_flat = st["p_reps"].reshape(b, -1, d)
+        answer_rep = torch.einsum("bl,bld->bd", flat, p_flat)
+
+        q_ids = batch["query"][:, 0]
+        p_ids = batch["passage"].reshape(b, -1)
+        memories = [st["q_reps"].reshape(b, -1, d), p_flat]
+        keeps = [q_ids != 0, p_ids != 0]
+        prior_q = torch.ones(q_ids.shape, dtype=torch.float32,
+                             device=q_ids.device)
+        return memories, keeps, [prior_q, flat], [q_ids, p_ids], answer_rep
+
+    def rank(self, batch) -> torch.Tensor:
+        """Passage scores only (rank-only serving): encoder + selection
+        tower, without the token tower and the decoder."""
+        return self._encode_select(batch)[-1]
+
+    def predict(self, batch, *, max_len: int) -> Dict[str, torch.Tensor]:
+        """Greedy response generation plus pool scores (ref:
+        CaSE/Model.py:313-331 do_test)."""
+        st = self.stages(batch)
+        memories, keeps, weights, src_ids, answer_rep = \
+            self._decoder_inputs(batch, st)
+        ids = self.decoder.decode(memories, keeps, weights, src_ids, max_len,
+                                  feature=answer_rep)
+        return {"answer": ids, "rank": st["passage_score"]}

@@ -1,0 +1,159 @@
+"""Multi-head attention with a packed QKV projection and KV-cache support
+(port of ``case_rg_tpu/ops/attention.py``, inference half).
+
+The packed in-projection ``in_proj_weight`` [3E, E] is the JAX package's
+``qkv_kernel`` [E, 3E] transposed (q | k | v blocks). Scores and softmax run
+in f32 for every input dtype; probabilities are cast to v's dtype before
+the PV product. Rows whose keys are all masked produce zeros.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels.encoder_attention import fused_mha
+from .masking import neg_inf
+
+# Routing of deterministic, no-bias, no-weights sites to the fused kernel
+# (kernels/encoder_attention.fused_mha): None = auto (bf16 inputs),
+# True = always, False = never (the dense ``attend`` path).
+_FUSED_ATTN = None
+
+
+def set_fused_attention(on) -> None:
+    """True=force, False=off, None=auto (bf16 only)."""
+    global _FUSED_ATTN
+    _FUSED_ATTN = on
+
+
+def _fused_attention_ok(dtype, attn_bias, need_weights) -> bool:
+    if _FUSED_ATTN is False or attn_bias is not None or need_weights:
+        return False
+    if _FUSED_ATTN:
+        return True
+    return dtype == torch.bfloat16   # f32, the parity dtype, stays dense
+
+
+def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    b, l, e = x.shape
+    return x.reshape(b, l, num_heads, e // num_heads).transpose(1, 2)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, l, d = x.shape
+    return x.transpose(1, 2).reshape(b, l, h * d)
+
+
+def _mask_scores(scores, key_keep):
+    return torch.where(key_keep[:, None, None, :], scores,
+                       torch.full((), neg_inf(scores.dtype),
+                                  device=scores.device))
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           attn_bias: Optional[torch.Tensor] = None,
+           key_keep: Optional[torch.Tensor] = None,
+           need_weights: bool = False
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Scaled dot-product attention on [B, H, L, d] tensors. ``attn_bias``:
+    additive [Lq, Lk]; ``key_keep``: bool [B, Lk], True = attend."""
+    d = q.shape[-1]
+    scale = torch.tensor(1.0 / np.sqrt(np.float32(d)), dtype=torch.float32
+                         ).to(device=q.device, dtype=q.dtype)
+    scores = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
+    if attn_bias is not None:
+        scores = scores + attn_bias.float()[None, None]
+    if key_keep is not None:
+        scores = _mask_scores(scores, key_keep)
+    probs = torch.softmax(scores, dim=-1)
+    if key_keep is not None:
+        probs = probs * key_keep.any(-1).to(probs.dtype)[:, None, None, None]
+    weights = probs.mean(1) if need_weights else None
+    return torch.matmul(probs.to(v.dtype), v), weights
+
+
+class MultiHeadAttention(nn.Module):
+    """Torch-style MHA (same embed dim for q/k/v, packed projection)."""
+
+    def __init__(self, embed_dim: int, num_heads: int, *, device=None,
+                 dtype=None):
+        super().__init__()
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.in_proj_weight = nn.Parameter(
+            torch.empty(3 * embed_dim, embed_dim, device=device, dtype=dtype))
+        self.in_proj_bias = nn.Parameter(
+            torch.empty(3 * embed_dim, device=device, dtype=dtype))
+        self.out = nn.Linear(embed_dim, embed_dim, device=device, dtype=dtype)
+
+    def _proj(self, x: torch.Tensor, which: str) -> torch.Tensor:
+        e = self.embed_dim
+        i = {"q": 0, "k": 1, "v": 2}[which]
+        return F.linear(x, self.in_proj_weight[i * e:(i + 1) * e],
+                        self.in_proj_bias[i * e:(i + 1) * e])
+
+    def project_q(self, x: torch.Tensor) -> torch.Tensor:
+        return self._proj(x, "q")
+
+    def project_kv(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Precompute K/V (merged-head layout [B, L, E]) for cached decoding."""
+        return self._proj(x, "k"), self._proj(x, "v")
+
+    def project_qkv(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """All three projections in one product. Returns (q [B, L, E],
+        kv [B, L, 2E]); the packed kv half goes to the cache as one buffer."""
+        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+        e = self.embed_dim
+        return qkv[..., :e], qkv[..., e:]
+
+    def attend_with_kv_merged(self, q_in: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, key_keep=None,
+                              q_projected: bool = False):
+        """Decode attention over merged-layout K/V [B, L, E].
+        ``q_projected=True`` skips the query projection."""
+        b, lq, e = q_in.shape
+        h = self.num_heads
+        d = e // h
+        q = (q_in if q_projected else self.project_q(q_in)).reshape(b, lq, h, d)
+        kh = k.reshape(b, -1, h, d)
+        vh = v.reshape(b, -1, h, d)
+        scale = torch.tensor(1.0 / np.sqrt(d)).to(device=q.device,
+                                                   dtype=q.dtype)
+        scores = torch.einsum("bqhd,bkhd->bhqk", (q * scale).float(),
+                              kh.float())
+        if key_keep is not None:
+            scores = _mask_scores(scores, key_keep)
+        probs = torch.softmax(scores, dim=-1)
+        if key_keep is not None:
+            probs = probs * key_keep.any(-1).to(probs.dtype)[:, None, None,
+                                                              None]
+        ctx = torch.einsum("bhqk,bkhd->bqhd", probs.to(vh.dtype), vh)
+        return self.out(ctx.reshape(b, lq, e)), None
+
+    def attend_with_kv(self, q_in: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor, *, attn_bias=None, key_keep=None,
+                       need_weights: bool = False):
+        """Attention where K/V are already projected ([B, Lk, E])."""
+        if _fused_attention_ok(q_in.dtype, attn_bias, need_weights):
+            ctx = fused_mha(self.project_q(q_in), k, v, key_keep,
+                            self.num_heads)
+            return self.out(ctx), None
+        h = self.num_heads
+        ctx, w = attend(split_heads(self.project_q(q_in), h),
+                        split_heads(k, h), split_heads(v, h),
+                        attn_bias=attn_bias, key_keep=key_keep,
+                        need_weights=need_weights)
+        return self.out(merge_heads(ctx)), w
+
+    def forward(self, q_in: torch.Tensor, k_in: torch.Tensor,
+                v_in: torch.Tensor, *, attn_bias=None, key_keep=None,
+                need_weights: bool = False):
+        return self.attend_with_kv(q_in, self._proj(k_in, "k"),
+                                   self._proj(v_in, "v"), attn_bias=attn_bias,
+                                   key_keep=key_keep,
+                                   need_weights=need_weights)

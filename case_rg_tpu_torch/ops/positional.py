@@ -1,0 +1,45 @@
+"""Sinusoidal positional embedding (port of
+``case_rg_tpu/ops/positional.py``): ``x * sqrt(d) + PE`` in x's dtype.
+Dropout is the identity at inference and is not ported."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def sinusoid_table(max_len: int, dim: int, dtype=np.float32) -> np.ndarray:
+    """[max_len, dim] table; pe[:, 0::2]=sin, pe[:, 1::2]=cos, computed in
+    float64 then cast (ref: common/PositionalEmbedding.py:27-31)."""
+    position = np.arange(max_len, dtype=np.float64)[:, None]
+    div_term = np.exp(np.arange(0, dim, 2, dtype=np.float64)
+                      * (-np.log(10000.0) / dim))
+    pe = np.zeros((max_len, dim), dtype=np.float64)
+    pe[:, 0::2] = np.sin(position * div_term)
+    pe[:, 1::2] = np.cos(position * div_term[: pe[:, 1::2].shape[1]])
+    return pe.astype(dtype)
+
+
+class PositionalEmbedding(nn.Module):
+    """Works on [..., L, D]. ``offset`` is the absolute position of the
+    first token: an int, or a [B] tensor of per-row positions."""
+
+    def __init__(self, dim: int, max_len: int = 1000, *, device=None):
+        super().__init__()
+        self.dim = dim
+        self.register_buffer(
+            "table", torch.from_numpy(sinusoid_table(max_len, dim)).to(device),
+            persistent=False)
+
+    def forward(self, x: torch.Tensor, *, offset=0) -> torch.Tensor:
+        table = self.table.to(x.dtype)
+        length = x.shape[-2]
+        if isinstance(offset, torch.Tensor) and offset.ndim == 1:
+            pos = offset[:, None] + torch.arange(length, device=x.device)
+            pe = table[pos]                                   # [B, L, D]
+        else:
+            pe = table[int(offset):int(offset) + length]
+        scale = torch.tensor(np.sqrt(self.dim), dtype=x.dtype,
+                             device=x.device)
+        return x * scale + pe

@@ -1,0 +1,52 @@
+"""Inference dispatch (port of ``case_rg_tpu/runtime/inference.py`` for
+CaSE greedy serving and rank-only serving)."""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import numpy as np
+import torch
+
+from ..config import ModelConfig
+from ..device import resolve_device
+
+RANK_MODELS = ("case",)
+
+
+def _to_device(batch: dict, device: torch.device) -> dict:
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, np.ndarray):
+            v = torch.from_numpy(v)
+        if not v.is_floating_point():
+            v = v.long()
+        out[k] = v.to(device, non_blocking=True)
+    return out
+
+
+def make_predict_fn(model, cfg: ModelConfig, max_len: int, *,
+                    rank_only: bool = False, device="cuda"
+                    ) -> Callable[[dict], Dict[str, torch.Tensor]]:
+    """A function batch -> {"answer" [B, max_len] int32, "rank" [B, P]}
+    (greedy decoding), or -> {"rank"} with ``rank_only``. Batches hold
+    "query" [B, 1, Lq] and "passage" [B, P, Lp] ids, as numpy arrays or
+    tensors; they are moved to ``device``, where ``model`` must live.
+    Raises without a card unless ``device="cpu"``."""
+    dev = resolve_device(device)
+    where = next(model.parameters()).device
+    if where.type != dev.type:
+        raise ValueError(f"model lives on {where}, not on {dev}")
+    if cfg.name not in RANK_MODELS:
+        raise ValueError(f"model {cfg.name!r} is not ported yet")
+
+    if rank_only:
+        def fn(batch):
+            with torch.inference_mode():
+                return {"rank": model.rank(_to_device(batch, where))}
+        return fn
+
+    def fn(batch):
+        with torch.inference_mode():
+            return model.predict(_to_device(batch, where), max_len=max_len)
+    return fn
