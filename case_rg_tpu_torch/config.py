@@ -1,6 +1,6 @@
-"""Model configuration: the port's own copy of ``case_rg_tpu.config.
-ModelConfig`` (same fields and defaults, so a JAX config's values carry
-over one for one)."""
+"""Configuration: the port's own copies of ``case_rg_tpu.config.
+ModelConfig`` and of the train step's part of ``TrainConfig`` (same fields
+and defaults, so a JAX config's values carry over one for one)."""
 
 from __future__ import annotations
 
@@ -41,3 +41,20 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The train step's knobs: the port's copy of the fields of
+    ``case_rg_tpu.config.TrainConfig`` that the step reads, with the same
+    defaults."""
+
+    batch_size: int = 16
+    learning_rate: float = 2.5e-4
+    warmup_steps: int = 2000
+    num_cycles: int = 1            # cosine-with-hard-restarts cycles
+    accumulation_steps: int = 1
+    grad_clip: float = 1.0
+    ema_decay: float = 0.995
+    compute_dtype: str = "float32"   # "bfloat16": f32 masters, bf16 fwd/bwd
+    seed: int = 123456

@@ -6,6 +6,7 @@ it (the tests do)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -16,3 +17,16 @@ def resolve_device(device="cuda") -> torch.device:
             "case_rg_tpu_torch: a CUDA device was requested but torch sees "
             "none; pass device='cpu' to run on the CPU")
     return dev
+
+
+def batch_to_device(batch: dict, device: torch.device) -> dict:
+    """A batch of numpy arrays or tensors on ``device``: integer fields as
+    int64 (ids, labels), float fields as they are."""
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, np.ndarray):
+            v = torch.from_numpy(v)
+        if not v.is_floating_point():
+            v = v.long()
+        out[k] = v.to(device, non_blocking=True)
+    return out

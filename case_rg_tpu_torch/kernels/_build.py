@@ -25,7 +25,7 @@ from typing import Dict, Sequence
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "kernels"
-SOURCES = ("encoder_attention", "decoder_stack")
+SOURCES = ("encoder_attention", "decoder_stack", "train_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,20 +1,23 @@
 """CaSE — the paper model: relevant passage selection, supporting token
 identification, and copy-augmented response generation (port of
-``case_rg_tpu/models/case.py``, inference half).
+``case_rg_tpu/models/case.py``).
 
 The three stages share one 3-layer transformer encoder; the decoder is the
-2-memory copy decoder with the answer-vector feature.
+2-memory copy decoder with the answer-vector feature. ``train_losses`` gives
+the three training losses; with a dropout generator ``gen`` every dropout
+site is live (training), with None the losses are deterministic.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
 from ..config import ModelConfig
 from ..ops.masking import padding_mask
+from .base import bce_with_logits, nll_from_probs, one_hot_labels
 from .components import TransformerSeqEncoder
 from .multimem import MultiMemoryDecoder
 from .towers import InteractionTower
@@ -30,34 +33,39 @@ class CaSEModel(nn.Module):
         self.cfg = cfg
         d = c.hidden_size
         self.encoder = TransformerSeqEncoder(c.enc_layers, c.num_heads,
-                                             c.vocab_size, d, **kw)
+                                             c.vocab_size, d, c.dropout, **kw)
         self.ps_tower = InteractionTower(d, c.num_heads, query_blocks=3,
-                                         passage_blocks=5, **kw)
+                                         passage_blocks=5, dropout=c.dropout,
+                                         **kw)
         self.ps_scorer = nn.Linear(d, 1, **kw)
         self.sti_tower = InteractionTower(d, c.num_heads, query_blocks=2,
-                                          passage_blocks=3, **kw)
+                                          passage_blocks=3, dropout=c.dropout,
+                                          **kw)
         self.sti_scorer = nn.Linear(d, 1, **kw)
         self.sti_norm_q = nn.LayerNorm(d, eps=_LN_EPS, **kw)
         self.sti_norm_p = nn.LayerNorm(d, eps=_LN_EPS, **kw)
         self.decoder = MultiMemoryDecoder(
             c.vocab_size, d, c.num_heads, c.dec_layers, num_memories=2,
-            use_feature=True, bos_id=c.bos_id, eos_id=c.eos_id, **kw)
+            use_feature=True, dropout=c.dropout, bos_id=c.bos_id,
+            eos_id=c.eos_id, **kw)
 
-    def _encode_select(self, batch):
+    def _encode_select(self, batch, gen=None):
         q_ids, p_ids = batch["query"], batch["passage"]
         q_keep, p_keep = padding_mask(q_ids), padding_mask(p_ids)
-        enc_q, _ = self.encoder(q_ids)
-        enc_p, _ = self.encoder(p_ids)
-        q1, p1 = self.ps_tower(enc_q, enc_p, q_keep, p_keep)
+        enc_q, _ = self.encoder(q_ids, gen)
+        enc_p, _ = self.encoder(p_ids, gen)
+        q1, p1 = self.ps_tower(enc_q, enc_p, q_keep, p_keep, gen)
         passage_score = self.ps_scorer(p1[:, :, 0])[..., 0]      # [B, P]
         return q1, p1, q_keep, p_keep, passage_score
 
-    def stages(self, batch) -> Dict[str, torch.Tensor]:
+    def stages(self, batch, gen: Optional[torch.Generator] = None
+               ) -> Dict[str, torch.Tensor]:
         """Encode + passage selection + token identification. Returns
         passage_score [B, P], token_score [B, P, Lp], and the updated reps
         feeding generation."""
-        q1, p1, q_keep, p_keep, passage_score = self._encode_select(batch)
-        q2, p2 = self.sti_tower(q1, p1, q_keep, p_keep)
+        q1, p1, q_keep, p_keep, passage_score = self._encode_select(batch,
+                                                                    gen)
+        q2, p2 = self.sti_tower(q1, p1, q_keep, p_keep, gen)
         token_score = self.sti_scorer(p2)[..., 0]                # [B, P, Lp]
         token_score = torch.where(p_keep, token_score, torch.full(
             (), -1e6, dtype=token_score.dtype, device=token_score.device))
@@ -86,6 +94,35 @@ class CaSEModel(nn.Module):
         prior_q = torch.ones(q_ids.shape, dtype=torch.float32,
                              device=q_ids.device)
         return memories, keeps, [prior_q, flat], [q_ids, p_ids], answer_rep
+
+    def train_losses(self, batch, gen: Optional[torch.Generator] = None
+                     ) -> Dict[str, torch.Tensor]:
+        """{"select", "token", "gen"} losses (ref: CaSE/Model.py:273-311
+        do_train). ``batch`` holds query, passage, response,
+        passage_label, token_label, token_weight and optionally
+        sample_weight."""
+        w = batch.get("sample_weight")
+        st = self.stages(batch, gen)
+        label_1h = one_hot_labels(batch["passage_label"],
+                                  st["passage_score"].shape[-1])
+        loss_ps = bce_with_logits(st["passage_score"], label_1h, w)
+
+        # weighted token BCE (CaSE/Model.py:290-293)
+        ts, lab = st["token_score"], batch["token_label"]
+        per = ts.clamp_min(0) - ts * lab + torch.log1p(torch.exp(-ts.abs()))
+        mask = st["p_keep"].float()
+        if w is not None:
+            mask = mask * w.float()[:, None, None]
+        loss_se = (mask * per * batch["token_weight"]).sum() / \
+            mask.sum().clamp_min(1.0)
+
+        memories, keeps, weights, src_ids, answer_rep = \
+            self._decoder_inputs(batch, st)
+        prob_at = self.decoder.teacher_force(
+            memories, keeps, weights, src_ids, batch["response"],
+            feature=answer_rep, gen=gen)
+        loss_rg = nll_from_probs(prob_at, batch["response"], w)
+        return {"select": loss_ps, "token": loss_se, "gen": loss_rg}
 
     def rank(self, batch) -> torch.Tensor:
         """Passage scores only (rank-only serving): encoder + selection

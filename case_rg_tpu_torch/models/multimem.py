@@ -1,12 +1,13 @@
 """Multi-memory transformer decoder with copy extension (port of
-``case_rg_tpu/models/multimem.py``, inference half: greedy decoding with
-the dense copy-scatter + argmax epilogue).
+``case_rg_tpu/models/multimem.py``: teacher forcing for training, and greedy
+decoding with the dense copy-scatter + argmax epilogue).
 
 M chained per-memory decoder stacks; the copy attention for memory i
 queries the stream after stack i, before the final norm; per-memory copy
 attention is prior-weighted and renormalized with the 1e-8 guard; the
 ``mix`` head splits probability mass between generation and the M copy
-distributions.
+distributions. Training gathers the target's probability directly (no
+[B, T, V_ext] copy tensor).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from ..kernels.decoder_stack import fold_stack_weights, stack_step
 from ..ops.bilinear import BilinearAttention
 from ..ops.cache import write_step
 from ..ops.copynet import copy_scatter
+from ..ops.dropout import dropout
 from ..ops.embedding import Embedding
 from ..ops.masking import softmax
 from ..ops.positional import PositionalEmbedding
@@ -46,8 +48,9 @@ def set_fused_stack(on) -> None:
 class MultiMemoryDecoder(nn.Module):
     def __init__(self, vocab_size: int, hidden_size: int, num_heads: int,
                  num_layers: int, num_memories: int = 2,
-                 use_feature: bool = False, bos_id: int = 1, eos_id: int = 3,
-                 *, device=None, dtype=None):
+                 use_feature: bool = False, dropout: float = 0.0,
+                 bos_id: int = 1, eos_id: int = 3, *, device=None,
+                 dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         d, v = hidden_size, vocab_size
@@ -57,14 +60,16 @@ class MultiMemoryDecoder(nn.Module):
         self.num_layers = num_layers
         self.num_memories = num_memories
         self.use_feature = use_feature
+        self.dropout = dropout
         self.bos_id = bos_id
         self.eos_id = eos_id
         self.embedding = Embedding(v, d, **kw)
-        self.pos = PositionalEmbedding(d, max_len=1000, device=device)
+        self.pos = PositionalEmbedding(d, dropout, max_len=1000, device=device)
         q_size = 2 * d if use_feature else d
         for i in range(num_memories):
             self.add_module(f"dec{i}", Decoder(num_layers, d, num_heads,
-                                               d_ff=d, activation="gelu", **kw))
+                                               d_ff=d, dropout=dropout,
+                                               activation="gelu", **kw))
             self.add_module(f"attn{i}", BilinearAttention(q_size, d, d, **kw))
         self.norm1 = nn.LayerNorm(d, eps=_LN_EPS, **kw)
         if use_feature:
@@ -83,24 +88,72 @@ class MultiMemoryDecoder(nn.Module):
 
     # ---- shared per-position math ----
 
-    def _generator_parts(self, dec_input, dec_normed, feature):
+    def _generator_parts(self, dec_input, dec_normed, feature, gen=None):
         """(pre-softmax hidden h [.., d], vocabulary logits [.., V])."""
         parts = [dec_input, dec_normed]
         if self.use_feature:
             parts.append(feature)
         h = self.gen1(torch.cat(parts, dim=-1))
+        if self.use_feature:   # CaSE has a dropout inside the generator
+            h = dropout(h, self.dropout, gen)
         return h, self.gen2(h)
 
     def _memory_attend(self, i, stream, feature, memory, mem_keep, weight,
-                       tgt_keep, uh):
+                       tgt_keep, uh=None):
         """Prior-weighted renormalized copy attention for memory i.
-        stream: [B, T, D]; returns (context [B, T, D], p [B, T, Lm])."""
+        stream: [B, T, D]; returns (context [B, T, D], p [B, T, Lm]).
+        ``uh``: the precomputed key projection (decoding), or None."""
         q = torch.cat([stream, feature], -1) if self.use_feature else stream
         mask = tgt_keep[:, :, None] & mem_keep[:, None, :]
+        if uh is None:
+            uh = self.attns[i].key_proj(memory)
         ctx, _, nw = self.attns[i].attend_from_proj(q, uh, memory, mask=mask)
         p = weight[:, None, :] * nw
         p = p / (1e-8 + p.sum(dim=-1, keepdim=True))
         return ctx, p
+
+    # ---- training ----
+
+    def teacher_force(self, memories: Sequence[torch.Tensor],
+                      mem_keeps: Sequence[torch.Tensor],
+                      weights: Sequence[torch.Tensor],
+                      src_ids: Sequence[torch.Tensor],
+                      targets: torch.Tensor,
+                      feature: Optional[torch.Tensor] = None,
+                      gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        """prob_at_target [B, T]: the copy-extended probability of each
+        target token, the decoder fed the shifted targets. ``gen``: the
+        dropout generator (None = deterministic)."""
+        b, t = targets.shape
+        bos = torch.full((b, 1), self.bos_id, dtype=targets.dtype,
+                         device=targets.device)
+        inputs = torch.cat([bos, targets[:, :-1]], dim=1)
+        tgt_keep = inputs != 0
+        dec_input = self.pos(self.embedding(inputs), gen=gen)
+        feat = None
+        if self.use_feature:
+            feat = self.norm2(feature)[:, None, :].expand(b, t, -1)
+            feat = dropout(feat, self.dropout, gen)
+        x = dec_input
+        ctxs, ps = [], []
+        for i in range(self.num_memories):
+            x = self.decs[i](x, memories[i], tgt_keep, mem_keeps[i], gen)
+            ctx, p = self._memory_attend(i, x, feat, memories[i], mem_keeps[i],
+                                         weights[i], tgt_keep)
+            ctxs.append(ctx)
+            ps.append(p)
+        x = self.norm1(x)
+        gen_p = torch.softmax(
+            self._generator_parts(dec_input, x, feat, gen)[1], dim=-1)
+        mix_p = torch.softmax(self.mix(torch.cat([x] + ctxs, dim=-1)), dim=-1)
+        prob_at = mix_p[..., 0] * torch.gather(gen_p, -1,
+                                               targets[..., None])[..., 0]
+        for i in range(self.num_memories):
+            match = (src_ids[i][:, None, :] == targets[:, :, None]).to(
+                ps[i].dtype)
+            copy_at = torch.einsum("btl,btl->bt", ps[i], match)
+            prob_at = prob_at + mix_p[..., i + 1] * copy_at
+        return prob_at
 
     # ---- decode machinery ----
 

@@ -4,7 +4,7 @@ dual query<->passage interaction producing 5D features, then a stack of
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -15,7 +15,8 @@ from ..ops.interaction import Interaction
 
 class InteractionTower(nn.Module):
     def __init__(self, hidden_size: int, num_heads: int, query_blocks: int,
-                 passage_blocks: int, *, device=None, dtype=None):
+                 passage_blocks: int, dropout: float = 0.0, *, device=None,
+                 dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         d, h = hidden_size, num_heads
@@ -25,20 +26,21 @@ class InteractionTower(nn.Module):
         for side, n in (("q", query_blocks), ("p", passage_blocks)):
             for i in range(n):
                 self.add_module(f"{side}_block{i}", TransformerBlock(
-                    h, 5 * d if i == 0 else d, d, **kw))
+                    h, 5 * d if i == 0 else d, d, dropout, **kw))
 
     def _blocks(self, side: str, n: int) -> List[TransformerBlock]:
         return [getattr(self, f"{side}_block{i}") for i in range(n)]
 
     def forward(self, enc_query: torch.Tensor, enc_passage: torch.Tensor,
-                query_keep: torch.Tensor, passage_keep: torch.Tensor
+                query_keep: torch.Tensor, passage_keep: torch.Tensor,
+                gen: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """enc_query: [B, 1, Lq, D], enc_passage: [B, P, Lp, D] ->
         (query_reps [B, 1, Lq, D], passage_reps [B, P, Lp, D])."""
         q, p = self.interaction(enc_query, enc_passage, query_keep,
                                 passage_keep)
         for blk in self._blocks("q", self.query_blocks):
-            q = blk(q, query_keep)
+            q = blk(q, query_keep, gen)
         for blk in self._blocks("p", self.passage_blocks):
-            p = blk(p, passage_keep)
+            p = blk(p, passage_keep, gen)
         return q, p

@@ -1,10 +1,12 @@
 """Multi-head attention with a packed QKV projection and KV-cache support
-(port of ``case_rg_tpu/ops/attention.py``, inference half).
+(port of ``case_rg_tpu/ops/attention.py``).
 
 The packed in-projection ``in_proj_weight`` [3E, E] is the JAX package's
 ``qkv_kernel`` [E, 3E] transposed (q | k | v blocks). Scores and softmax run
 in f32 for every input dtype; probabilities are cast to v's dtype before
-the PV product. Rows whose keys are all masked produce zeros.
+the PV product. Rows whose keys are all masked produce zeros. In training
+(a dropout generator is given) the probabilities go through dropout before
+the PV product.
 """
 
 from __future__ import annotations
@@ -17,12 +19,26 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.encoder_attention import fused_mha
+from ..kernels.train_attention import (draw_seed, fused_train_mha,
+                                       fused_train_mha_rng)
+from .dropout import dropout, keep_mask
 from .masking import neg_inf
 
 # Routing of deterministic, no-bias, no-weights sites to the fused kernel
 # (kernels/encoder_attention.fused_mha): None = auto (bf16 inputs),
 # True = always, False = never (the dense ``attend`` path).
 _FUSED_ATTN = None
+# Routing of training sites (dropout generator given) without bias or
+# weights to the fused training attention (kernels/train_attention): None =
+# auto (bf16 inputs and dropout > 0, the gate the JAX package's CLI sets for
+# --bf16_train), True = always, False = never (the dense ``attend`` path
+# with probs dropout).
+_FUSED_TRAIN_ATTN = None
+# Which of its two variants: True = the mask is drawn inside the kernel from
+# a per-site seed (fused_train_mha_rng, the --bf16_train default), False =
+# the caller draws the [R, H, Lq, Lk] mask with the dense path's draw
+# (fused_train_mha; --no-kernel_rng_dropout).
+_FUSED_TRAIN_ATTN_RNG = True
 
 
 def set_fused_attention(on) -> None:
@@ -31,12 +47,33 @@ def set_fused_attention(on) -> None:
     _FUSED_ATTN = on
 
 
+def set_fused_train_attention(on) -> None:
+    """True=force, False=off, None=auto (bf16 and dropout > 0)."""
+    global _FUSED_TRAIN_ATTN
+    _FUSED_TRAIN_ATTN = on
+
+
+def set_fused_train_attn_rng(on: bool) -> None:
+    """True: in-kernel Philox mask; False: caller-drawn mask."""
+    global _FUSED_TRAIN_ATTN_RNG
+    _FUSED_TRAIN_ATTN_RNG = bool(on)
+
+
 def _fused_attention_ok(dtype, attn_bias, need_weights) -> bool:
     if _FUSED_ATTN is False or attn_bias is not None or need_weights:
         return False
     if _FUSED_ATTN:
         return True
     return dtype == torch.bfloat16   # f32, the parity dtype, stays dense
+
+
+def _fused_train_attention_ok(dtype, attn_bias, need_weights,
+                              rate: float) -> bool:
+    if _FUSED_TRAIN_ATTN is False or attn_bias is not None or need_weights:
+        return False
+    if _FUSED_TRAIN_ATTN:
+        return True
+    return dtype == torch.bfloat16 and rate > 0.0
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -58,10 +95,13 @@ def _mask_scores(scores, key_keep):
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            attn_bias: Optional[torch.Tensor] = None,
            key_keep: Optional[torch.Tensor] = None,
+           dropout_rate: float = 0.0,
+           gen: Optional[torch.Generator] = None,
            need_weights: bool = False
            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Scaled dot-product attention on [B, H, L, d] tensors. ``attn_bias``:
-    additive [Lq, Lk]; ``key_keep``: bool [B, Lk], True = attend."""
+    additive [Lq, Lk]; ``key_keep``: bool [B, Lk], True = attend; with a
+    generator ``gen``, dropout at ``dropout_rate`` on the probabilities."""
     d = q.shape[-1]
     scale = torch.tensor(1.0 / np.sqrt(np.float32(d)), dtype=torch.float32
                          ).to(device=q.device, dtype=q.dtype)
@@ -74,17 +114,19 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if key_keep is not None:
         probs = probs * key_keep.any(-1).to(probs.dtype)[:, None, None, None]
     weights = probs.mean(1) if need_weights else None
+    probs = dropout(probs, dropout_rate, gen)
     return torch.matmul(probs.to(v.dtype), v), weights
 
 
 class MultiHeadAttention(nn.Module):
     """Torch-style MHA (same embed dim for q/k/v, packed projection)."""
 
-    def __init__(self, embed_dim: int, num_heads: int, *, device=None,
-                 dtype=None):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
+                 *, device=None, dtype=None):
         super().__init__()
         self.embed_dim = embed_dim
         self.num_heads = num_heads
+        self.dropout = dropout
         self.in_proj_weight = nn.Parameter(
             torch.empty(3 * embed_dim, embed_dim, device=device, dtype=dtype))
         self.in_proj_bias = nn.Parameter(
@@ -137,23 +179,46 @@ class MultiHeadAttention(nn.Module):
 
     def attend_with_kv(self, q_in: torch.Tensor, k: torch.Tensor,
                        v: torch.Tensor, *, attn_bias=None, key_keep=None,
-                       need_weights: bool = False):
-        """Attention where K/V are already projected ([B, Lk, E])."""
-        if _fused_attention_ok(q_in.dtype, attn_bias, need_weights):
-            ctx = fused_mha(self.project_q(q_in), k, v, key_keep,
-                            self.num_heads)
-            return self.out(ctx), None
+                       need_weights: bool = False,
+                       gen: Optional[torch.Generator] = None):
+        """Attention where K/V are already projected ([B, Lk, E]). ``gen``:
+        the dropout generator (training); None = deterministic."""
         h = self.num_heads
+        if gen is None and _fused_attention_ok(q_in.dtype, attn_bias,
+                                               need_weights):
+            ctx = fused_mha(self.project_q(q_in), k, v, key_keep, h)
+            return self.out(ctx), None
+        if gen is not None and _fused_train_attention_ok(
+                q_in.dtype, attn_bias, need_weights, self.dropout):
+            # every encoder/tower self-attention site and the teacher-forced
+            # decoder cross-attentions (Lq != Lk); the causal decoder
+            # self-attention has a bias and stays dense
+            q = self.project_q(q_in)
+            r, lq, _ = q.shape
+            if _FUSED_TRAIN_ATTN_RNG:
+                ctx = fused_train_mha_rng(q, k, v, key_keep,
+                                          draw_seed(gen, q.device), h,
+                                          self.dropout)
+            else:
+                # the dense path's draw, same shape and generator: the
+                # same mask bits
+                mask = keep_mask((r, h, lq, k.shape[1]), self.dropout, gen,
+                                 q.device)
+                ctx = fused_train_mha(q, k, v, key_keep, mask, h,
+                                      self.dropout)
+            return self.out(ctx), None
         ctx, w = attend(split_heads(self.project_q(q_in), h),
                         split_heads(k, h), split_heads(v, h),
                         attn_bias=attn_bias, key_keep=key_keep,
+                        dropout_rate=self.dropout, gen=gen,
                         need_weights=need_weights)
         return self.out(merge_heads(ctx)), w
 
     def forward(self, q_in: torch.Tensor, k_in: torch.Tensor,
                 v_in: torch.Tensor, *, attn_bias=None, key_keep=None,
-                need_weights: bool = False):
+                need_weights: bool = False,
+                gen: Optional[torch.Generator] = None):
         return self.attend_with_kv(q_in, self._proj(k_in, "k"),
                                    self._proj(v_in, "v"), attn_bias=attn_bias,
                                    key_keep=key_keep,
-                                   need_weights=need_weights)
+                                   need_weights=need_weights, gen=gen)

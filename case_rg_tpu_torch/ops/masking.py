@@ -20,6 +20,14 @@ def padding_mask(ids: torch.Tensor) -> torch.Tensor:
     return ids != 0
 
 
+def causal_mask(length: int, dtype=torch.float32, device=None
+                ) -> torch.Tensor:
+    """[L, L] additive mask: 0 on and below the diagonal, -1e20 above."""
+    i = torch.arange(length, device=device)[:, None]
+    j = torch.arange(length, device=device)[None, :]
+    return torch.where(j <= i, 0.0, neg_inf(dtype)).to(dtype)
+
+
 def softmax(x: torch.Tensor, dim: int) -> torch.Tensor:
     """exp(x - max) / sum in x's dtype, op for op as the JAX helper."""
     unnorm = torch.exp(x - x.amax(dim=dim, keepdim=True))

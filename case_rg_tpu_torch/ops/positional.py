@@ -1,12 +1,16 @@
 """Sinusoidal positional embedding (port of
-``case_rg_tpu/ops/positional.py``): ``x * sqrt(d) + PE`` in x's dtype.
-Dropout is the identity at inference and is not ported."""
+``case_rg_tpu/ops/positional.py``): ``x * sqrt(d) + PE`` in x's dtype,
+then dropout when a generator is given (training)."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 from torch import nn
+
+from .dropout import dropout
 
 
 def sinusoid_table(max_len: int, dim: int, dtype=np.float32) -> np.ndarray:
@@ -25,14 +29,17 @@ class PositionalEmbedding(nn.Module):
     """Works on [..., L, D]. ``offset`` is the absolute position of the
     first token: an int, or a [B] tensor of per-row positions."""
 
-    def __init__(self, dim: int, max_len: int = 1000, *, device=None):
+    def __init__(self, dim: int, dropout: float = 0.0, max_len: int = 1000,
+                 *, device=None):
         super().__init__()
         self.dim = dim
+        self.dropout = dropout
         self.register_buffer(
             "table", torch.from_numpy(sinusoid_table(max_len, dim)).to(device),
             persistent=False)
 
-    def forward(self, x: torch.Tensor, *, offset=0) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, offset=0,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
         table = self.table.to(x.dtype)
         length = x.shape[-2]
         if isinstance(offset, torch.Tensor) and offset.ndim == 1:
@@ -42,4 +49,4 @@ class PositionalEmbedding(nn.Module):
             pe = table[int(offset):int(offset) + length]
         scale = torch.tensor(np.sqrt(self.dim), dtype=x.dtype,
                              device=x.device)
-        return x * scale + pe
+        return dropout(x * scale + pe, self.dropout, gen)

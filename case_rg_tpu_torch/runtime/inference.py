@@ -5,24 +5,12 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
-import numpy as np
 import torch
 
 from ..config import ModelConfig
-from ..device import resolve_device
+from ..device import batch_to_device, resolve_device
 
 RANK_MODELS = ("case",)
-
-
-def _to_device(batch: dict, device: torch.device) -> dict:
-    out = {}
-    for k, v in batch.items():
-        if isinstance(v, np.ndarray):
-            v = torch.from_numpy(v)
-        if not v.is_floating_point():
-            v = v.long()
-        out[k] = v.to(device, non_blocking=True)
-    return out
 
 
 def make_predict_fn(model, cfg: ModelConfig, max_len: int, *,
@@ -43,10 +31,10 @@ def make_predict_fn(model, cfg: ModelConfig, max_len: int, *,
     if rank_only:
         def fn(batch):
             with torch.inference_mode():
-                return {"rank": model.rank(_to_device(batch, where))}
+                return {"rank": model.rank(batch_to_device(batch, where))}
         return fn
 
     def fn(batch):
         with torch.inference_mode():
-            return model.predict(_to_device(batch, where), max_len=max_len)
+            return model.predict(batch_to_device(batch, where), max_len=max_len)
     return fn

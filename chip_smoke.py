@@ -24,7 +24,20 @@ In order it
      rank gated, answers reported). Last, it profiles two batches with
      torch.profiler: device busy and idle share, and the kernels that take
      the most device time;
-  5. prints one JSON line {"kernels": [...]} and, last, the device line
+  5. trains CaSE at the same widths (dropout 0.1, B=64 batches with a
+     response, passage and token labels; f32 masters, bf16 compute) through
+     the train step of case_rg_tpu_torch.train.trainer. First it holds the
+     four training-attention kernels (forward and backward of
+     fused_train_mha and fused_train_mha_rng) against their plain versions
+     at the six shapes one train step gives them, times them beside
+     scaled_dot_product_attention with dropout, and recovers the in-kernel
+     dropout mask with a probe. Then, for each variant, it compares the
+     first step's loss and gradient with the kernels swapped for their plain
+     versions (same dropout bits), runs 10 steps on one repeated batch with
+     the kernels (launch counters set to 0 just before, read just after;
+     the loss must fall), the same 10 steps with the plain versions, and
+     profiles two steps with torch.profiler;
+  6. prints one JSON line {"kernels": [...]} and, last, the device line
      {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -82,6 +95,34 @@ MIN_TOKEN_AGREEMENT = 0.7
 MIN_FIRST_TOKEN_AGREEMENT = 0.75
 AGREEMENT_SLACK = 0.05
 PROFILE_BATCHES = 2
+
+# training: dropout rate, and the sites of the training-attention kernels
+# in one CaSE train step at B=64: (rows, Lq, Lk, E) -> count
+RATE = 0.1
+TRAIN_SITES = {(B, LQ, LQ, E): 6,              # encoder query x3, ps q 1-2, sti q 1
+               (B * P, LP, LP, E): 9,          # encoder pool x3, ps p 1-4, sti p 1-2
+               (B, LQ, LQ, 5 * E): 2,          # ps/sti q block 0 (d=160)
+               (B * P, LP, LP, 5 * E): 2,      # ps/sti p block 0
+               (B, T_ANS, LQ, E): 4,           # decoder stack 0 cross-attention
+               (B, T_ANS, P * LP, E): 4}       # decoder stack 1 cross-attention
+TRAIN_SITES_PER_STEP = 27
+# Training-attention kernels against their plain versions, in bf16 ulps
+# per element as above (the same function with the same rounding points,
+# sums in another order). The worst readings on an H100 were 3 ulps forward
+# and 4 on the gradients, over the six sites and both variants; each limit
+# keeps a margin over them.
+TRAIN_FWD_ULPS = 4
+TRAIN_GRAD_ULPS = 8
+# the keep share of the recovered in-kernel mask at the (640, 100, 100)
+# site, against 1 - RATE
+KEEP_SHARE_TOL = 0.005
+# Train steps: kernels vs their plain versions on the first step, from the
+# same weights with the same dropout bits, so only rounding differs. Read on
+# an H100: loss 1.5e-5 relative apart, gradient cosine 0.9999962 (both
+# variants); the limits keep a margin of about 60x and 25x on 1 - cosine.
+FIRST_LOSS_RTOL = 1e-3
+FIRST_GRAD_COSINE = 0.9999
+TRAIN_STEPS, TRAIN_WARMUP = 10, 2
 
 
 class CheckFailed(RuntimeError):
@@ -341,9 +382,10 @@ def agreement(outs, refs):
             "first_token_agreement": first / (len(outs) * B)}
 
 
-def profile_serving(predict, batches):
-    """Device time of ``batches`` under torch.profiler: wall ms per batch,
-    device busy ms and idle share, and the kernels that take the most."""
+def profile_device(run, batches):
+    """Device time of ``run`` over ``batches`` under torch.profiler: wall ms
+    per batch, device busy ms and idle share, and the kernels that take the
+    most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -357,7 +399,7 @@ def profile_serving(predict, batches):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for bt in batches:
-            predict(bt)
+            run(bt)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
     # device-side events only: a CPU op's entry repeats its kernels' time
@@ -478,7 +520,7 @@ def serve_case(dev):
           f"rank, kernels vs routed off: {vs_off['rank_max_ulps']} bf16 ulps "
           f"> {RANK_ULPS}")
 
-    profiled = profile_serving(predict, batches[:PROFILE_BATCHES])
+    profiled = profile_device(predict, batches[:PROFILE_BATCHES])
     return {
         "params": n_params, "launches": launches,
         "ms_per_batch": times, "plain_ms_per_batch": plain_times,
@@ -487,6 +529,286 @@ def serve_case(dev):
         "exact_sums_vs_plain": exact_vs_plain, "vs_routed_off": vs_off,
         "profile": profiled,
     }
+
+
+# ---- phase 5: training ----
+
+VARIANTS = {"mask": False, "rng": True}     # kernel variant -> in-kernel RNG
+
+
+def train_mha_inputs(r, lq, lk, e, gen, dev):
+    q = torch.randn(r, lq, e, generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(r, lk, e, generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    lengths = torch.randint(lk // 3, lk + 1, (r,), generator=gen, device=dev)
+    keep = torch.arange(lk, device=dev)[None, :] < lengths[:, None]
+    keep[:2] = False                       # rows whose keys are all padding
+    do = torch.randn(r, lq, e, generator=gen, device=dev).to(torch.bfloat16)
+    return q, k, v, keep, do
+
+
+def check_and_time_train_mha(dev, gen):
+    """Each training-attention kernel (forward and backward, both variants)
+    against its plain version at each site of a train step; times and
+    bounds summed over one step's sites."""
+    from case_rg_tpu_torch.kernels import train_attention as ta
+    from case_rg_tpu_torch.ops.dropout import keep_mask
+    names = [f"{v}_{w}" for v in VARIANTS for w in ("fwd", "bwd")]
+    total = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
+                 "flops": 0, "max_abs_err": 0.0, "max_ulps": 0.0}
+             for n in names}
+    rows = []
+    for (r, lq, lk, e), count in TRAIN_SITES.items():
+        d = e // H
+        q, k, v, keep, do = train_mha_inputs(r, lq, lk, e, gen, dev)
+        valid = int(keep.sum().item())
+        lib_keep = keep.clone()
+        lib_keep[:, 0] = True              # SDPA gives NaN on empty rows
+        qh, kh, vh, doh = (x.view(x.shape[0], -1, H, d).transpose(1, 2)
+                           for x in (q, k, v, do))
+        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=lib_keep[:, None, None, :], dropout_p=RATE))
+        xs = [x.detach().clone().requires_grad_() for x in (qh, kh, vh)]
+        lib_out = F.scaled_dot_product_attention(
+            *xs, attn_mask=lib_keep[:, None, None, :], dropout_p=RATE)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, xs, doh,
+                                                      retain_graph=True))
+        for variant, rng in VARIANTS.items():
+            if rng:
+                src = torch.tensor([0x243F6A88, r + lk], dtype=torch.int64,
+                                   device=dev)
+                mask = ta.philox_keep_mask(src, r, H, lq, lk, RATE)
+                fn = ta.fused_train_mha_rng
+            else:
+                src = mask = keep_mask((r, H, lq, lk), RATE, gen, dev)
+                fn = ta.fused_train_mha
+            outs = []
+            for _ in range(2):             # twice: the same bits each time
+                xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+                out = fn(*xs, keep, src, H, RATE)
+                outs.append([out.detach(),
+                             *torch.autograd.grad(out, xs, do)])
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(*outs)),
+                  f"train_mha {variant} {(r, lq, lk, e)}: two launches differ")
+            ref = ta.fused_train_mha_plain(q, k, v, keep, mask, H, RATE)
+            ref_g = ta.fused_train_mha_plain_bwd(q, k, v, keep, mask, do, H,
+                                                 RATE)
+            f_ulps, f_err = bf16_ulps(outs[0][0], ref)
+            g_read = [bf16_ulps(g, rg) for g, rg in zip(outs[0][1:], ref_g)]
+            g_ulps = max(u for u, _ in g_read)
+            g_err = max(x for _, x in g_read)
+            site = (r, lq, lk, e)
+            check(f_ulps <= TRAIN_FWD_ULPS,
+                  f"train_mha {variant} {site}: forward {f_ulps} bf16 ulps > "
+                  f"{TRAIN_FWD_ULPS}")
+            check(g_ulps <= TRAIN_GRAD_ULPS,
+                  f"train_mha {variant} {site}: gradients {g_ulps} bf16 ulps "
+                  f"> {TRAIN_GRAD_ULPS}")
+            check(all(bool((x[:2] == 0).all()) for x in outs[0]),
+                  f"train_mha {variant} {site}: all-padding rows not 0")
+            _, stats = ta._launch_fwd(q, k, v, keep, src, H, RATE, rng)
+            ms_f = time_ms(lambda: ta._launch_fwd(q, k, v, keep, src, H,
+                                                  RATE, rng))
+            ms_b = time_ms(lambda: ta._launch_bwd(q, k, v, keep, src, do,
+                                                  stats, H, RATE, rng))
+            plain_mask = ((lambda: ta.philox_keep_mask(src, r, H, lq, lk,
+                                                       RATE)) if rng
+                          else (lambda: src))
+            plain_f = time_ms(lambda: ta.fused_train_mha_plain(
+                q, k, v, keep, plain_mask(), H, RATE), iters=5)
+            plain_b = time_ms(lambda: ta.fused_train_mha_plain_bwd(
+                q, k, v, keep, plain_mask(), do, H, RATE), iters=5)
+            src_bytes = nbytes(src)
+            io = nbytes(q, k, v, keep) + src_bytes
+            readings = {
+                "fwd": (ms_f, plain_f, lib_fwd, io + nbytes(q),
+                        4 * lq * d * H * valid, f_err, f_ulps),
+                "bwd": (ms_b, plain_b, lib_bwd, io + nbytes(do, q, k, v),
+                        10 * lq * d * H * valid, g_err, g_ulps)}
+            for way, (ms, pl, lib, nb, nf, err, ulps) in readings.items():
+                t = total[f"{variant}_{way}"]
+                t["ms"] += count * ms
+                t["plain_ms"] += count * pl
+                t["library_ms"] += count * lib
+                t["bytes"] += count * nb
+                t["flops"] += count * nf
+                t["max_abs_err"] = max(t["max_abs_err"], err)
+                t["max_ulps"] = max(t["max_ulps"], ulps)
+                rows.append({"kernel": f"{variant}_{way}", "rows": r, "Lq": lq,
+                             "Lk": lk, "E": e, "sites": count, "ms": ms,
+                             "plain_ms": pl, "library_ms": lib,
+                             "bound_ms": bound_ms(nb, nf)[0],
+                             "max_ulps": ulps, "max_abs_err": err})
+    for t in total.values():
+        t["bound_ms"], t["bound_by"] = bound_ms(t["bytes"], t["flops"])
+    return total, rows
+
+
+def probe_rng_mask(dev):
+    """The in-kernel mask at the (640, 100, 100, 256) site, recovered as the
+    JAX package's test does: q = k = 0 makes the probabilities uniform, and
+    v's lanes of each head are basis vectors over a chunk of d keys, so the
+    output lanes are the dropped probabilities of those keys. It must equal
+    philox_keep_mask bit for bit, and keep 1 - RATE of the elements."""
+    from case_rg_tpu_torch.kernels import train_attention as ta
+    r, lq, lk, e = B * P, LP, LP, E
+    d = e // H
+    seed = torch.tensor([0x9E3779B9, 7], dtype=torch.int64, device=dev)
+    z = torch.zeros(r, lq, e, dtype=torch.bfloat16, device=dev)
+    zk = torch.zeros(r, lk, e, dtype=torch.bfloat16, device=dev)
+    got = torch.empty(r, H, lq, lk, dtype=torch.bool, device=dev)
+    for c0 in range(0, lk, d):
+        n = min(d, lk - c0)
+        v = torch.zeros(r, lk, e, dtype=torch.bfloat16, device=dev)
+        for h in range(H):
+            v[:, c0:c0 + n, h * d:h * d + n] = torch.eye(n, device=dev)
+        out = ta.fused_train_mha_rng(z, zk, v, None, seed, H, RATE)
+        for h in range(H):
+            got[:, h, :, c0:c0 + n] = out[:, :, h * d:h * d + n] != 0
+    want = ta.philox_keep_mask(seed, r, H, lq, lk, RATE)
+    check(torch.equal(got, want), "probe: the kernel's mask is not "
+          f"philox_keep_mask ({int((got != want).sum())} elements differ)")
+    share = got.float().mean().item()
+    check(abs(share - (1 - RATE)) <= KEEP_SHARE_TOL,
+          f"probe: keep share {share}, expected {1 - RATE}")
+    return {"keep_share": share, "elements": got.numel()}
+
+
+class _PlainTrainMHA(torch.autograd.Function):
+    """The training attention with the kernels' plain versions as forward
+    and backward (same rounding points), for the swapped-in runs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, keep, mask, num_heads, rate):
+        from case_rg_tpu_torch.kernels import train_attention as ta
+        ctx.save_for_backward(q, k, v, keep, mask)
+        ctx.num_heads, ctx.rate = num_heads, rate
+        return ta.fused_train_mha_plain(q, k, v, keep, mask, num_heads, rate)
+
+    @staticmethod
+    def backward(ctx, do):
+        from case_rg_tpu_torch.kernels import train_attention as ta
+        q, k, v, keep, mask = ctx.saved_tensors
+        grads = ta.fused_train_mha_plain_bwd(q, k, v, keep, mask, do,
+                                             ctx.num_heads, ctx.rate)
+        return (*grads, None, None, None, None)
+
+
+def plain_mha(q, k, v, keep, mask, num_heads, rate):
+    return _PlainTrainMHA.apply(q, k, v, keep, mask, num_heads, rate)
+
+
+def plain_mha_rng(q, k, v, keep, seed, num_heads, rate):
+    from case_rg_tpu_torch.kernels import train_attention as ta
+    mask = ta.philox_keep_mask(seed, q.shape[0], num_heads, q.shape[1],
+                               k.shape[1], rate)
+    return _PlainTrainMHA.apply(q, k, v, keep, mask, num_heads, rate)
+
+
+def make_train_batch(rng):
+    """A served batch plus what training reads: a response of variable
+    length and the passage and token labels."""
+    bt = make_batch(rng)
+    resp = rng.randint(4, V, size=(B, T_ANS)).astype(np.int32)
+    for i, n in enumerate(rng.randint(T_ANS // 4, T_ANS + 1, size=B)):
+        resp[i, n:] = 0
+    bt["response"] = resp
+    bt["passage_label"] = rng.randint(0, P, size=B).astype(np.int32)
+    bt["token_label"] = ((rng.rand(B, P, LP) < 0.1)
+                         & (bt["passage"] != 0)).astype(np.float32)
+    bt["token_weight"] = (1 + rng.rand(B, P, LP)).astype(np.float32)
+    return bt
+
+
+def train_case(dev):
+    from case_rg_tpu_torch.config import ModelConfig, TrainConfig
+    from case_rg_tpu_torch.kernels import train_attention as ta
+    from case_rg_tpu_torch.models import create_model, perturb_affine
+    from case_rg_tpu_torch.ops import attention
+    from case_rg_tpu_torch.train.trainer import Trainer
+
+    cfg = ModelConfig(name="case", vocab_size=V, embedding_size=E,
+                      hidden_size=E, num_heads=H, enc_layers=ENC_LAYERS,
+                      dec_layers=DEC_LAYERS, max_dec_len=T_ANS,
+                      max_target_length=T_ANS, dropout=RATE,
+                      param_dtype="float32")
+    tc = TrainConfig(batch_size=B, learning_rate=2.5e-4, warmup_steps=1,
+                     compute_dtype="bfloat16")
+    model = create_model("case", cfg, device=dev, seed=0)
+    perturb_affine(model, torch.Generator(device=dev).manual_seed(1))
+    init = {k: v.detach().clone() for k, v in model.named_parameters()}
+    trainer = Trainer(model, tc, total_steps=1000, device=dev)
+    rng = np.random.RandomState(1)
+    batch = make_train_batch(rng)
+
+    def fresh():
+        with torch.no_grad():
+            for k, p in model.named_parameters():
+                p.copy_(init[k])
+        return trainer.init_state(), torch.Generator(device=dev).manual_seed(7)
+
+    def routed(variant, plain):
+        """Route the training sites to ``variant``'s kernels, or to their
+        plain versions (same dropout draws from the generator)."""
+        attention.set_fused_train_attn_rng(VARIANTS[variant])
+        attention.fused_train_mha = plain_mha if plain else ta.fused_train_mha
+        attention.fused_train_mha_rng = (plain_mha_rng if plain
+                                         else ta.fused_train_mha_rng)
+
+    out = {}
+    try:
+        for variant in VARIANTS:
+            first = {}
+            for route in ("kernels", "plain"):
+                routed(variant, route == "plain")
+                st, gen = fresh()
+                losses, grads = trainer.loss_and_grads(st, batch, gen)
+                flat = torch.cat([g.float().flatten() for g in grads.values()])
+                first[route] = (losses["total"].item(), flat)
+            (lk_, gk), (lp, gp) = first["kernels"], first["plain"]
+            cosine = F.cosine_similarity(gk, gp, dim=0).item()
+            check(abs(lk_ - lp) <= FIRST_LOSS_RTOL * abs(lp),
+                  f"train {variant}: first loss {lk_} vs plain {lp}")
+            check(cosine >= FIRST_GRAD_COSINE,
+                  f"train {variant}: first gradient cosine {cosine}")
+            res = {"first_loss": lk_, "first_loss_plain": lp,
+                   "first_loss_rel_diff": abs(lk_ - lp) / abs(lp),
+                   "first_grad_cosine": cosine}
+            for route in ("kernels", "plain"):
+                routed(variant, route == "plain")
+                st, gen = fresh()
+                torch.cuda.synchronize()
+                ta.LAUNCHES_FWD[variant] = ta.LAUNCHES_BWD[variant] = 0
+                losses, norms, times = [], [], []
+                for step in range(TRAIN_STEPS):
+                    t0 = time.perf_counter()
+                    o = trainer.train_step(st, batch, gen)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    losses.append(o["total"].item())
+                    norms.append(o["grad_norm"].item())
+                launches = (ta.LAUNCHES_FWD[variant], ta.LAUNCHES_BWD[variant])
+                check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+                      f"train {variant} {route}: losses {losses}, gradient "
+                      f"norms {norms}")
+                check(losses[-1] < losses[0],
+                      f"train {variant} {route}: loss did not fall: {losses}")
+                want = (0, 0) if route == "plain" else \
+                    (TRAIN_SITES_PER_STEP * TRAIN_STEPS,) * 2
+                check(launches == want, f"train {variant} {route}: launches "
+                      f"{launches}, expected {want}")
+                res[route] = {"losses": losses, "grad_norms": norms,
+                              "ms_per_step": times[TRAIN_WARMUP:],
+                              "launches": launches}
+            out[variant] = res
+        routed("rng", False)
+        st, gen = fresh()
+        out["profile_rng"] = profile_device(
+            lambda bt: trainer.train_step(st, bt, gen), [batch] * 2)
+    finally:
+        routed("rng", False)
+    return out
 
 
 def main() -> int:
@@ -521,6 +843,12 @@ def main() -> int:
     print("stack_step: " + json.dumps(stack), flush=True)
     serve = serve_case(dev)
     print("case serving: " + json.dumps(serve), flush=True)
+    tmha, tmha_rows = check_and_time_train_mha(dev, gen)
+    print("train attention sites: " + json.dumps(tmha_rows), flush=True)
+    print("train attention probe: " + json.dumps(probe_rng_mask(dev)),
+          flush=True)
+    train = train_case(dev)
+    print("case training: " + json.dumps(train), flush=True)
 
     kernels = [
         {"name": "fused_mha", "route": "cuda",
@@ -538,6 +866,22 @@ def main() -> int:
          "plain_ms": stack["plain_ms"], "bound_ms": stack["bound_ms"],
          "bound_by": stack["bound_by"], "library_ms": stack["library_ms"]},
     ]
+    replaces = {"mask_fwd": ("fused_train_mha", 188),
+                "mask_bwd": ("fused_train_mha_bwd", 222),
+                "rng_fwd": ("fused_train_mha_rng", 470),
+                "rng_bwd": ("fused_train_mha_rng_bwd", 498)}
+    for key, (name, line) in replaces.items():
+        variant, way = key.split("_")
+        t = tmha[key]
+        launches = train[variant]["kernels"]["launches"][way == "bwd"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "case_rg_tpu_torch/csrc/train_attention.cu",
+            "replaces": f"case_rg_tpu/kernels/train_attention.py:{line}",
+            "launches": launches, "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
