@@ -129,12 +129,38 @@ class CaSEModel(nn.Module):
         tower, without the token tower and the decoder."""
         return self._encode_select(batch)[-1]
 
-    def predict(self, batch, *, max_len: int) -> Dict[str, torch.Tensor]:
+    def predict(self, batch, *, max_len: int, early_exit: bool = False,
+                fast_argmax=None) -> Dict[str, torch.Tensor]:
         """Greedy response generation plus pool scores (ref:
-        CaSE/Model.py:313-331 do_test)."""
+        CaSE/Model.py:313-331 do_test). ``early_exit`` and ``fast_argmax``
+        as on ``MultiMemoryDecoder.decode``."""
         st = self.stages(batch)
         memories, keeps, weights, src_ids, answer_rep = \
             self._decoder_inputs(batch, st)
         ids = self.decoder.decode(memories, keeps, weights, src_ids, max_len,
-                                  feature=answer_rep)
+                                  feature=answer_rep, early_exit=early_exit,
+                                  fast_argmax=fast_argmax)
         return {"answer": ids, "rank": st["passage_score"]}
+
+    # ---- continuous-batching serving (runtime/continuous): encode + the
+    #      per-row decode state, advanced in chunks with rows refilled
+    #      mid-flight; each request's answer is the one ``predict`` gives ----
+
+    def decode_init(self, batch, *, max_len: int, fast_argmax=None):
+        """(state, rank): the chunk-decode state of this batch and its pool
+        scores. ``batch["response_cap"]`` [B], if present, caps each row's
+        answer."""
+        st = self.stages(batch)
+        memories, keeps, weights, src_ids, answer_rep = \
+            self._decoder_inputs(batch, st)
+        state = self.decoder.chunk_init(memories, keeps, weights, src_ids,
+                                        max_len, feature=answer_rep,
+                                        fast_argmax=fast_argmax,
+                                        row_max=batch.get("response_cap"))
+        return state, st["passage_score"]
+
+    def decode_chunk(self, state, *, n_steps: int, fast_argmax=None,
+                     sampling: bool = False):
+        return self.decoder.chunk_step(state, n_steps,
+                                       fast_argmax=fast_argmax,
+                                       sampling=sampling)

@@ -1,6 +1,9 @@
 """Multi-memory transformer decoder with copy extension (port of
-``case_rg_tpu/models/multimem.py``: teacher forcing for training, and greedy
-decoding with the dense copy-scatter + argmax epilogue).
+``case_rg_tpu/models/multimem.py``: teacher forcing for training, greedy
+decoding in one shot or in chunks with per-row progress for continuous
+batching, and the three argmax epilogues: the dense copy scatter, and the
+candidate argmax with its duplicate-id combine by a batched product or by
+the ``combine_copy_mass`` kernel).
 
 M chained per-memory decoder stacks; the copy attention for memory i
 queries the stream after stack i, before the final norm; per-memory copy
@@ -12,11 +15,13 @@ distributions. Training gathers the target's probability directly (no
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from ..kernels import copy_argmax
+from ..kernels.copy_argmax import gather_weight_columns
 from ..kernels.decoder_stack import fold_stack_weights, stack_step
 from ..ops.bilinear import BilinearAttention
 from ..ops.cache import write_step
@@ -77,6 +82,7 @@ class MultiMemoryDecoder(nn.Module):
         self.gen1 = nn.Linear((3 if use_feature else 2) * d, d, **kw)
         self.gen2 = nn.Linear(d, v, bias=False, **kw)
         self.mix = nn.Linear((1 + num_memories) * d, num_memories + 1, **kw)
+        self._fold_cache: Dict[tuple, tuple] = {}
 
     @property
     def decs(self) -> List[Decoder]:
@@ -164,12 +170,25 @@ class MultiMemoryDecoder(nn.Module):
             return bool(_FUSED_STACK)
         return memory.dtype == torch.bfloat16 and memory.shape[1] >= _FUSED_MIN_L
 
+    def _folded(self, i: int, dtype) -> Dict[str, torch.Tensor]:
+        """Folded fused-stack operands of stack ``i`` ([n_layers, ...],
+        derived from the parameters alone, so they never ride in the
+        per-row decode state). Cached per dtype; the key holds each
+        parameter's storage and version, so new weights fold again."""
+        dec = self.decs[i]
+        key = tuple((p.data_ptr(), p._version) for p in dec.parameters())
+        hit = self._fold_cache.get((i, dtype))
+        if hit is None or hit[0] != key:
+            hit = (key, fold_stack_weights(dec, self.num_layers,
+                                           self.num_heads, dtype))
+            self._fold_cache[(i, dtype)] = hit
+        return hit[1]
+
     def _decode_precompute(self, memories, feature):
         """Per-sequence precomputes: per-stack cross K/V (or, for fused
         stacks, the folded weight dict: the kernel reads the raw memory),
         copy-attention key projections, and the normed feature vector."""
-        cross = [fold_stack_weights(self.decs[i], self.num_layers,
-                                    self.num_heads, memories[i].dtype)
+        cross = [self._folded(i, memories[i].dtype)
                  if self._fused_stack(memories[i])
                  else self.decs[i].precompute_memory(memories[i])
                  for i in range(self.num_memories)]
@@ -192,8 +211,9 @@ class MultiMemoryDecoder(nn.Module):
                    memories, mem_keeps, weights):
         """One decode step through the stacks, copy attentions, generator
         and mix gate. ``t`` is an int (or [B] per-row positions). Caches and
-        ``hist`` are updated in place. Returns (gen [B,1,V], mix_p
-        [B,1,M+1], ps: per-memory copy probs [B,1,Lm])."""
+        ``hist`` are updated in place. Returns (mix_p [B,1,M+1], ps:
+        per-memory copy probs [B,1,Lm], gen_h [B,1,d], gen_logits [B,1,V]);
+        the generator's softmax is left to the argmax modes that read it."""
         write_step(hist, (prev != 0)[:, None], t)
         emb = self.pos(self.embedding(prev[:, None]), offset=t)
         x = emb
@@ -213,10 +233,9 @@ class MultiMemoryDecoder(nn.Module):
             ctxs.append(ctx)
             ps.append(p)
         x = self.norm1(x)
-        _, gen_logits = self._generator_parts(emb, x, feat)
-        gen = softmax(gen_logits, dim=-1)
+        gen_h, gen_logits = self._generator_parts(emb, x, feat)
         mix_p = softmax(self.mix(torch.cat([x] + ctxs, dim=-1)), dim=-1)
-        return gen, mix_p, ps
+        return mix_p, ps, gen_h, gen_logits
 
     def _extend_dist(self, gen, mix_p, ps, src_ids):
         """Copy-extended distribution."""
@@ -226,30 +245,216 @@ class MultiMemoryDecoder(nn.Module):
                 ps[i], src_ids[i], self.vocab_size)
         return dist
 
-    def _greedy_next(self, gen, mix_p, ps, src_ids) -> torch.Tensor:
-        """Dense argmax over the copy-extended distribution. Returns [B]."""
-        dist = self._extend_dist(gen, mix_p, ps, src_ids)
-        return dist[:, 0].argmax(dim=-1)
+    @staticmethod
+    def _resolve_fast_argmax(fast_argmax) -> Tuple[bool, bool]:
+        """(fast_argmax, use_kernel_comb) for a ``fast_argmax`` mode, with
+        the JAX package's mode names (its ``--fast_argmax`` values):
+
+        * ``None``/"auto": dense, as the JAX package decided on the TPU (to
+          be decided again from the H100's times of the three modes);
+        * ``False``/"dense": the [B, V] copy scatter + argmax;
+        * "mxu": the candidate argmax, duplicate-id copy mass combined by one
+          batched product against a first-occurrence matrix built per batch;
+        * "pallas" (or ``True``): the candidate argmax, the combine through
+          ``kernels/copy_argmax.combine_copy_mass`` (the CUDA kernel on the
+          card, its plain version on the CPU). Unlike the JAX package, it
+          never quietly becomes "mxu"."""
+        if isinstance(fast_argmax, str):
+            mode = fast_argmax.lower()
+            if mode not in ("auto", "dense", "mxu", "pallas"):
+                raise ValueError(f"fast_argmax mode {fast_argmax!r} not in "
+                                 "(auto, dense, mxu, pallas)")
+            if mode == "mxu":
+                return True, False
+            return (True, True) if mode == "pallas" else (False, False)
+        on = bool(fast_argmax)      # None (auto) stays dense
+        return on, on
+
+    def _argmax_precompute(self, src_ids, dtype, fast_argmax: bool,
+                           use_kernel_comb: bool):
+        """Step-invariant operands of the greedy argmax: the concatenated
+        source ids [B, Ls], plus per-mode [B, ...] tensors (so they ride in
+        the chunk-decode state and refill row by row)."""
+        ids_cat = torch.cat(list(src_ids), dim=-1)
+        extras = {}
+        if use_kernel_comb:
+            # the generator's weight rows at the source ids: per step, the
+            # logits there are one [B, Ls, d] x [B, d] product instead of a
+            # [B, V] gather
+            extras["w_at"], _ = gather_weight_columns(self.gen2.weight,
+                                                      ids_cat)
+            extras["ids32"] = ids_cat.to(torch.int32)
+        elif fast_argmax:
+            # for each source position, the first position with the same id
+            # (argmax returns the first maximum); comb_m[b, k, l] = 1 iff
+            # the first occurrence of ids[b, l] is k
+            ls = ids_cat.shape[1]
+            eq = ids_cat[:, :, None] == ids_cat[:, None, :]
+            first_occ = eq.to(torch.uint8).argmax(dim=-1)
+            pos = torch.arange(ls, device=ids_cat.device)
+            extras["comb_m"] = (first_occ[:, None, :]
+                                == pos[None, :, None]).to(dtype)
+            extras["is_first"] = first_occ == pos[None, :]
+        return ids_cat, extras
+
+    def _greedy_next(self, mix_p, ps, gen_h, gen_logits, src_ids,
+                     ids_cat, extras, fast_argmax: bool,
+                     use_kernel_comb: bool) -> torch.Tensor:
+        """Argmax over the copy-extended distribution for one step (modes
+        on ``_resolve_fast_argmax``). Returns [B] int32. The kernel mode
+        rebuilds the softmax in f32 from the logits, so only the dense and
+        mxu modes take the [B, V] softmax."""
+        if not fast_argmax:
+            dist = self._extend_dist(softmax(gen_logits, dim=-1), mix_p, ps,
+                                     src_ids)
+            return dist[:, 0].argmax(dim=-1).to(torch.int32)
+        cw = torch.cat([mix_p[:, 0, i + 1:i + 2] * ps[i][:, 0]
+                        for i in range(self.num_memories)], dim=-1)  # [B, Ls]
+        if use_kernel_comb:
+            w_at = extras["w_at"]
+            l_at = torch.einsum("bld,bd->bl", w_at, gen_h[:, 0].to(w_at.dtype))
+            return copy_argmax.candidate_argmax_from_logits(
+                gen_logits[:, 0], l_at, mix_p[:, 0, 0], cw, extras["ids32"])
+        gen = softmax(gen_logits, dim=-1)
+        comb_m, is_first = extras["comb_m"], extras["is_first"]
+        g = mix_p[:, 0, 0:1] * gen[:, 0]                 # [B, V]
+        g_idx = g.argmax(dim=-1, keepdim=True)
+        g_val = g.gather(-1, g_idx)[:, 0]
+        g_at = g.gather(-1, ids_cat)
+        comb = torch.einsum("bkl,bl->bk", comb_m, cw.to(comb_m.dtype))
+        cand = g_at + comb
+        cand = torch.where(is_first, cand,
+                           torch.full((), -1.0, dtype=cand.dtype,
+                                      device=cand.device))
+        c_pos = cand.argmax(dim=-1, keepdim=True)
+        c_val = cand.gather(-1, c_pos)[:, 0]
+        c_idx = ids_cat.gather(-1, c_pos)[:, 0]
+        return torch.where(c_val > g_val, c_idx, g_idx[:, 0]).to(torch.int32)
+
+    # ---- chunked greedy decoding with per-row progress (continuous
+    #      batching: rows refilled mid-flight sit at different absolute
+    #      positions; the decode math is row-independent, so a request's
+    #      answer is the one-shot decode's) ----
+
+    def chunk_init(self, memories, mem_keeps, weights, src_ids, max_len: int,
+                   feature: Optional[torch.Tensor] = None,
+                   fast_argmax=None,
+                   row_max: Optional[torch.Tensor] = None) -> dict:
+        """The per-row decode state that ``chunk_step`` advances. Every
+        tensor in it is [B, ...], so a serving driver can scatter fresh rows
+        (from a ``chunk_init`` on new requests) into a live state with
+        ``runtime.continuous.refill_rows``. Fused stacks keep their folded
+        weights on the decoder (``_folded``) and a None in ``cross``.
+
+        ``row_max`` [B]: per-row response caps; a row ends at its own cap
+        instead of ``max_len``."""
+        b = memories[0].shape[0]
+        dev = memories[0].device
+        fast_argmax, use_kernel_comb = self._resolve_fast_argmax(fast_argmax)
+        cross, key_projs, feat = self._decode_precompute(memories, feature)
+        cross = [None if isinstance(c, dict) else c for c in cross]
+        ids_cat, extras = self._argmax_precompute(
+            src_ids, memories[0].dtype, fast_argmax, use_kernel_comb)
+        if row_max is None:
+            row_max = torch.full((b,), max_len, dtype=torch.long, device=dev)
+        else:
+            row_max = row_max.to(device=dev, dtype=torch.long).clamp(1, max_len)
+        return {
+            "caches": self._init_caches(b, max_len, memories),
+            "cross": cross, "key_projs": key_projs, "feat": feat,
+            "memories": list(memories), "mem_keeps": list(mem_keeps),
+            "weights": list(weights), "src_ids": list(src_ids),
+            "ids_cat": ids_cat, "extras": extras,
+            "prev": torch.full((b,), self.bos_id, dtype=torch.int32,
+                               device=dev),
+            "trow": torch.zeros(b, dtype=torch.long, device=dev),
+            "done": torch.zeros(b, dtype=torch.bool, device=dev),
+            "hist": torch.zeros(b, max_len, dtype=torch.bool, device=dev),
+            "out": torch.zeros(b, max_len, dtype=torch.int32, device=dev),
+            "row_max": row_max,
+        }
+
+    def chunk_step(self, state: dict, n_steps: int, fast_argmax=None,
+                   sampling: bool = False) -> dict:
+        """Advance every row that is not done by ``n_steps`` greedy steps.
+
+        A row becomes done when it emits EOS or reaches its cap; done rows
+        freeze (they are pointed at position ``max_len``, where every write
+        is skipped). ``fast_argmax`` must be the mode ``chunk_init`` built
+        the state with. The KV caches and the history mask are updated in
+        place; ``prev``, ``trow``, ``done`` and ``out`` are fresh tensors in
+        the returned state, so a driver may still read the previous
+        state's."""
+        if sampling:
+            raise ValueError("sampled continuous decoding is not ported yet "
+                             "(greedy only)")
+        fast_argmax, use_kernel_comb = self._resolve_fast_argmax(fast_argmax)
+        memories, mem_keeps, weights, src_ids = (
+            state["memories"], state["mem_keeps"], state["weights"],
+            state["src_ids"])
+        cross = [self._folded(i, memories[i].dtype) if c is None else c
+                 for i, c in enumerate(state["cross"])]
+        caches, hist = state["caches"], state["hist"]
+        key_projs, feat = state["key_projs"], state["feat"]
+        ids_cat, extras = state["ids_cat"], state["extras"]
+        row_max = state["row_max"]
+        prev, trow, done = state["prev"], state["trow"], state["done"]
+        out = state["out"].clone()
+        max_len = out.shape[1]
+        for _ in range(n_steps):
+            t_w = torch.where(done, max_len, trow)
+            mix_p, ps, gen_h, gen_logits = self._step_core(
+                caches, prev, hist, t_w, cross, key_projs, feat, memories,
+                mem_keeps, weights)
+            nxt = self._greedy_next(mix_p, ps, gen_h, gen_logits,
+                                    src_ids, ids_cat, extras, fast_argmax,
+                                    use_kernel_comb)
+            active = ~done
+            write_step(out, nxt[:, None], t_w)
+            newly = active & ((nxt == self.eos_id) | (trow >= row_max - 1))
+            prev = torch.where(active, nxt, prev)
+            trow = torch.where(active & ~newly, trow + 1, trow)
+            done = done | newly
+        return dict(state, prev=prev, trow=trow, done=done, out=out)
+
+    # ---- greedy decoding (argmax over the extended distribution, no EOS
+    #      bookkeeping: ref CaSE/Model.py:119-123) ----
 
     def decode(self, memories: Sequence[torch.Tensor],
                mem_keeps: Sequence[torch.Tensor],
                weights: Sequence[torch.Tensor],
                src_ids: Sequence[torch.Tensor], max_len: int,
-               feature: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Greedy decoding: argmax over the extended distribution for
-        ``max_len`` steps, no EOS bookkeeping (ref CaSE/Model.py:119-123).
-        Returns [B, max_len] int32."""
+               feature: Optional[torch.Tensor] = None,
+               early_exit: bool = False, fast_argmax=None) -> torch.Tensor:
+        """Greedy decoding for ``max_len`` steps. Returns [B, max_len]
+        int32.
+
+        ``early_exit=True`` stops once every row has emitted EOS at least
+        once (the later positions stay PAD); it reads a flag from the device
+        every step. The reference keeps arg-maxing past EOS but truncates
+        at EOS when it prints, so the emitted answers are the same.
+        ``fast_argmax``: the argmax mode (``_resolve_fast_argmax``)."""
         b = memories[0].shape[0]
         dev = memories[0].device
+        fast_argmax, use_kernel_comb = self._resolve_fast_argmax(fast_argmax)
         cross, key_projs, feat = self._decode_precompute(memories, feature)
         caches = self._init_caches(b, max_len, memories)
-        prev = torch.full((b,), self.bos_id, dtype=torch.long, device=dev)
+        ids_cat, extras = self._argmax_precompute(
+            src_ids, memories[0].dtype, fast_argmax, use_kernel_comb)
+        prev = torch.full((b,), self.bos_id, dtype=torch.int32, device=dev)
         hist = torch.zeros(b, max_len, dtype=torch.bool, device=dev)
-        out = []
+        out = torch.zeros(b, max_len, dtype=torch.int32, device=dev)
+        ended = torch.zeros(b, dtype=torch.bool, device=dev)
         for t in range(max_len):
-            gen, mix_p, ps = self._step_core(caches, prev, hist, t, cross,
-                                             key_projs, feat, memories,
-                                             mem_keeps, weights)
-            prev = self._greedy_next(gen, mix_p, ps, src_ids)
-            out.append(prev)
-        return torch.stack(out, dim=1).to(torch.int32)
+            if early_exit and t > 0 and bool(ended.all()):
+                break
+            mix_p, ps, gen_h, gen_logits = self._step_core(
+                caches, prev, hist, t, cross, key_projs, feat, memories,
+                mem_keeps, weights)
+            prev = self._greedy_next(mix_p, ps, gen_h, gen_logits,
+                                     src_ids, ids_cat, extras, fast_argmax,
+                                     use_kernel_comb)
+            out[:, t] = prev
+            if early_exit:
+                ended |= prev == self.eos_id
+        return out

@@ -43,8 +43,11 @@ class PositionalEmbedding(nn.Module):
         table = self.table.to(x.dtype)
         length = x.shape[-2]
         if isinstance(offset, torch.Tensor) and offset.ndim == 1:
+            # per-row positions (continuous batching); rows that are done
+            # sit past the end and are clamped into the table (their
+            # outputs are discarded), since an index out of range raises
             pos = offset[:, None] + torch.arange(length, device=x.device)
-            pe = table[pos]                                   # [B, L, D]
+            pe = table[pos.clamp(max=table.shape[0] - 1)]     # [B, L, D]
         else:
             pe = table[int(offset):int(offset) + length]
         scale = torch.tensor(np.sqrt(self.dim), dtype=x.dtype,

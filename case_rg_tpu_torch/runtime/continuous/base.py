@@ -1,0 +1,197 @@
+"""Shared continuous-batching pieces (port of
+``case_rg_tpu/runtime/continuous/base.py``): the program builders
+(init/chunk/refill), the host copies a harvest reads, request sources, and
+the lazy rank handle. See the package docstring for the design.
+"""
+
+from __future__ import annotations
+
+import queue
+from typing import Iterator, List
+
+import numpy as np
+import torch
+
+from ...device import batch_to_device, resolve_device
+
+
+def _scatter_rows(s, n, dst: torch.Tensor, src: torch.Tensor) -> None:
+    if isinstance(s, torch.Tensor):
+        s[dst] = n[src]
+    elif isinstance(s, dict):
+        for k in s:
+            _scatter_rows(s[k], n[k], dst, src)
+    elif isinstance(s, (list, tuple)):
+        for a, c in zip(s, n):
+            _scatter_rows(a, c, dst, src)
+    elif s is not None:
+        raise TypeError(f"refill_rows: unexpected state leaf {type(s)}")
+
+
+@torch.inference_mode()
+def refill_rows(state: dict, new_state: dict, rows) -> dict:
+    """Scatter ``new_state``'s rows into ``state`` at ``rows``, IN PLACE,
+    and return ``state``.
+
+    ``rows`` (a host sequence) has ``new_state``'s batch size; entries
+    outside [0, B) of ``state``'s batch size B (padding slots of a
+    part-filled refill) are dropped here on the host, since an index out of
+    range raises."""
+    rows = np.asarray(rows, dtype=np.int64).reshape(-1)
+    b = state["out"].shape[0]
+    src = np.flatnonzero((rows >= 0) & (rows < b))
+    if len(src):
+        dev = state["out"].device
+        _scatter_rows(state, new_state,
+                      torch.as_tensor(rows[src], device=dev),
+                      torch.as_tensor(src, device=dev))
+    return state
+
+
+def make_continuous_fns(model, max_len: int, chunk_steps: int,
+                        fast_argmax=None, decoding: str = "greedy",
+                        device="cuda"):
+    """(init_fn, chunk_fn, refill_fn) for a model with ``decode_init`` and
+    ``decode_chunk`` (CaSE).
+
+    init_fn(batch) -> (state, rank) moves the batch to the model's device
+    and encodes it; chunk_fn(state) advances every live row by
+    ``chunk_steps`` greedy steps and returns the new state (the KV caches
+    are updated in place, so only the returned state may be advanced
+    again); refill_fn(state, new_state, rows) is ``refill_rows``.
+    ``fast_argmax`` is the argmax mode (``MultiMemoryDecoder``). Raises
+    without a card unless ``device="cpu"``."""
+    if decoding == "sample":
+        raise ValueError("decoding='sample' is not ported yet (greedy only)")
+    if decoding != "greedy":
+        raise ValueError(f"unknown decoding {decoding!r}")
+    dev = resolve_device(device)
+    where = next(model.parameters()).device
+    if where.type != dev.type:
+        raise ValueError(f"model lives on {where}, not on {dev}")
+    if not hasattr(model, "decode_init"):
+        raise ValueError(f"{type(model).__name__} has no chunked decode "
+                         "(not ported yet)")
+
+    def init_fn(batch):
+        with torch.inference_mode():
+            return model.decode_init(batch_to_device(batch, where),
+                                     max_len=max_len, fast_argmax=fast_argmax)
+
+    def chunk_fn(state):
+        with torch.inference_mode():
+            return model.decode_chunk(state, n_steps=chunk_steps,
+                                      fast_argmax=fast_argmax)
+
+    return init_fn, chunk_fn, refill_rows
+
+
+class HostCopy:
+    """Copies of device tensors to the host, started now and read later.
+
+    On a card the copies are non-blocking, into pinned host memory, behind
+    an event recorded on the current stream: a pageable target would make
+    the copy synchronous, and reading before the event completes would read
+    garbage. The copy takes the values that the tensors hold at this point
+    of the stream, whatever is enqueued after it. On the CPU the copies are
+    plain."""
+
+    __slots__ = ("_host", "_event")
+
+    def __init__(self, tensors):
+        self._event = None
+        if tensors[0].device.type == "cuda":
+            self._host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                          for t in tensors]
+            for h, t in zip(self._host, tensors):
+                h.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(tensors[0].device))
+        else:
+            self._host = [t.clone() for t in tensors]
+
+    def get(self) -> List[np.ndarray]:
+        """The copies as numpy arrays (bf16, which numpy lacks, as f32)."""
+        if self._event is not None:
+            self._event.synchronize()
+            self._event = None
+        return [(h.float() if h.dtype == torch.bfloat16 else h).numpy()
+                for h in self._host]
+
+
+class _LazyRank:
+    """Keeps a refill's rank fetch off the critical path: the host copy
+    starts when the handle is made and is read at the first row access
+    (usually chunks later, when the request finishes and the copy has
+    landed)."""
+
+    __slots__ = ("_copy", "_np")
+
+    def __init__(self, arr: torch.Tensor):
+        self._copy = HostCopy([arr])
+        self._np = None
+
+    def row(self, i: int):
+        if self._np is None:
+            self._np = self._copy.get()[0]
+            self._copy = None
+        return self._np[i]
+
+
+class IterSource:
+    """Request source over a plain iterator. ``take`` blocks on the
+    iterator until it yields or ends (``wait`` is advisory here): fine for
+    in-memory iterators and files, not for a trickling stream, which goes
+    through a reader thread and a ``QueueSource``."""
+
+    def __init__(self, it: Iterator[dict]):
+        self._it = iter(it)
+        self._done = False
+
+    def take(self, n: int, wait: bool) -> List[dict]:
+        out: List[dict] = []
+        while len(out) < n and not self._done:
+            try:
+                out.append(next(self._it))
+            except StopIteration:
+                self._done = True
+        return out
+
+    def finished(self) -> bool:
+        return self._done
+
+
+class QueueSource:
+    """Request source over a ``queue.Queue``: ``wait=True`` blocks for the
+    first item; further items are drained without blocking, so the decode
+    loop never stalls on an idle queue. A ``stop`` sentinel marks the end
+    of the stream."""
+
+    def __init__(self, q, stop):
+        self._q = q
+        self._stop = stop
+        self._done = False
+
+    def take(self, n: int, wait: bool) -> List[dict]:
+        out: List[dict] = []
+        if self._done:
+            return out
+        if wait:
+            item = self._q.get()
+            if item is self._stop:
+                self._done = True
+                return out
+            out.append(item)
+        while len(out) < n:
+            try:
+                item = self._q.get_nowait()
+            except queue.Empty:
+                break
+            if item is self._stop:
+                self._done = True
+                break
+            out.append(item)
+        return out
+
+    def finished(self) -> bool:
+        return self._done

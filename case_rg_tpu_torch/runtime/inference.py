@@ -14,12 +14,15 @@ RANK_MODELS = ("case",)
 
 
 def make_predict_fn(model, cfg: ModelConfig, max_len: int, *,
+                    early_exit: bool = False, fast_argmax=None,
                     rank_only: bool = False, device="cuda"
                     ) -> Callable[[dict], Dict[str, torch.Tensor]]:
     """A function batch -> {"answer" [B, max_len] int32, "rank" [B, P]}
-    (greedy decoding), or -> {"rank"} with ``rank_only``. Batches hold
-    "query" [B, 1, Lq] and "passage" [B, P, Lp] ids, as numpy arrays or
-    tensors; they are moved to ``device``, where ``model`` must live.
+    (greedy decoding; ``early_exit`` and the argmax mode ``fast_argmax`` as
+    on ``MultiMemoryDecoder.decode``), or -> {"rank"} with ``rank_only``.
+    Batches hold "query" [B, 1, Lq] and "passage" [B, P, Lp] ids, as numpy
+    arrays or tensors; they are moved to ``device``, where ``model`` must
+    live.
     Raises without a card unless ``device="cpu"``."""
     dev = resolve_device(device)
     where = next(model.parameters()).device
@@ -36,5 +39,7 @@ def make_predict_fn(model, cfg: ModelConfig, max_len: int, *,
 
     def fn(batch):
         with torch.inference_mode():
-            return model.predict(batch_to_device(batch, where), max_len=max_len)
+            return model.predict(batch_to_device(batch, where),
+                                 max_len=max_len, early_exit=early_exit,
+                                 fast_argmax=fast_argmax)
     return fn

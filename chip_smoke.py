@@ -24,7 +24,24 @@ In order it
      rank gated, answers reported). Last, it profiles two batches with
      torch.profiler: device busy and idle share, and the kernels that take
      the most device time;
-  5. trains CaSE at the same widths (dropout 0.1, B=64 batches with a
+  5. holds combine_copy_mass, the copy-argmax combine, against its plain
+     version at the decode's shape (B=64, source 60 + 10x100 = 1060, bf16
+     copy mass, ids drawn Zipf-like so they repeat as text does, padding as
+     served), an odd shape and one of 3000 positions, and times it per
+     launch beside its plain version and the dense scatter_add_ + gather
+     pair;
+  6. serves two B=64 batches in each argmax mode (dense, mxu, pallas), and
+     in pallas mode with the combine's wrapper swapped for its plain
+     version (answers gated at stated agreements);
+  7. serves 512 requests (answer caps drawn over 8..40) through continuous
+     batching at full width (batch 64, refill 16, chunks of 8 steps, pallas
+     mode), every launch counter set to 0 just before the base run and read
+     just after; then with lookahead, with the async harvest and with
+     refills coalesced to 8 rows (answers equal to the base run's, token for
+     token), through the multi-lane driver over pools of 5 and 10 passages,
+     and through the one-shot predict (answers gated at stated agreements);
+     dense mode once more for its time, and a profile;
+  8. trains CaSE at the same widths (dropout 0.1, B=64 batches with a
      response, passage and token labels; f32 masters, bf16 compute) through
      the train step of case_rg_tpu_torch.train.trainer. First it holds the
      four training-attention kernels (forward and backward of
@@ -37,7 +54,7 @@ In order it
      the kernels (launch counters set to 0 just before, read just after;
      the loss must fall), the same 10 steps with the plain versions, and
      profiles two steps with torch.profiler;
-  6. prints one JSON line {"kernels": [...]} and, last, the device line
+  9. prints one JSON line {"kernels": [...]} and, last, the device line
      {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -62,6 +79,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12          # f32 outside the tensor cores
 
 # serving shapes (bench.py): B=64, query 60, pool 10 x 100, answer 40
 B, LQ, P, LP, T_ANS = 64, 60, 10, 100, 40
@@ -166,9 +184,9 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: float, n_flops: float):
+def bound_ms(n_bytes: float, n_flops: float, peak_flops=PEAK_BF16_FLOPS):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = n_flops / peak_flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -382,6 +400,32 @@ def agreement(outs, refs):
             "first_token_agreement": first / (len(outs) * B)}
 
 
+def device_ms(fn, iters: int = 50) -> float:
+    """Device time per call of ``fn``, without the host's gaps: the calls
+    are queued behind a spin kernel, so the host has issued them all before
+    the first runs, and two events time them on the device alone. A call
+    that the device finishes before the host can issue the next one (a
+    short kernel) is timed as the device runs it."""
+    fn()
+    torch.cuda.synchronize()
+    spin = 5e7                            # cycles: ~25 ms at 1.98 GHz
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued = not start.query()        # the spin still ran: no gaps
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / iters
+        spin *= 4
+    raise CheckFailed("device_ms: the host could not queue the calls ahead "
+                      "of the device")
+
+
 def profile_device(run, batches):
     """Device time of ``run`` over ``batches`` under torch.profiler: wall ms
     per batch, device busy ms and idle share, and the kernels that take the
@@ -416,20 +460,27 @@ def profile_device(run, batches):
                             for ms, c, n in kernels[:12]]}
 
 
-def serve_case(dev):
+def serving_model(dev):
+    """CaSE at the serving widths, bf16 weights from seed 0 with noisy
+    biases and LayerNorm gains: (cfg, model)."""
     from case_rg_tpu_torch.config import ModelConfig
-    from case_rg_tpu_torch.kernels import decoder_stack as ds
-    from case_rg_tpu_torch.kernels import encoder_attention as ea
-    from case_rg_tpu_torch.models import create_model, multimem, perturb_affine
-    from case_rg_tpu_torch.ops import attention
-    from case_rg_tpu_torch.runtime.inference import make_predict_fn
-
+    from case_rg_tpu_torch.models import create_model, perturb_affine
     cfg = ModelConfig(name="case", vocab_size=V, embedding_size=E,
                       hidden_size=E, num_heads=H, enc_layers=ENC_LAYERS,
                       dec_layers=DEC_LAYERS, max_dec_len=T_ANS,
                       max_target_length=T_ANS, param_dtype="bfloat16")
     model = create_model("case", cfg, device=dev, seed=0)
     perturb_affine(model, torch.Generator(device=dev).manual_seed(1))
+    return cfg, model
+
+
+def serve_case(dev, cfg, model):
+    from case_rg_tpu_torch.kernels import decoder_stack as ds
+    from case_rg_tpu_torch.kernels import encoder_attention as ea
+    from case_rg_tpu_torch.models import multimem
+    from case_rg_tpu_torch.ops import attention
+    from case_rg_tpu_torch.runtime.inference import make_predict_fn
+
     n_params = sum(p.numel() for p in model.parameters())
     predict = make_predict_fn(model, cfg, T_ANS, device=dev)
     rank_only = make_predict_fn(model, cfg, T_ANS, rank_only=True, device=dev)
@@ -531,7 +582,309 @@ def serve_case(dev):
     }
 
 
-# ---- phase 5: training ----
+# ---- phases 5-7: the candidate argmax and continuous serving ----
+
+LS = LQ + P * LP                 # copy source of a row: query + pool = 1060
+# combine_copy_mass: the decode's shape, an odd one, and one longer than the
+# JAX package's MAX_FAST_LS (1280)
+COMBINE_SHAPES = ((B, LS), (5, 77), (8, 3000))
+# Per element, as a share of the row's total copy mass: the kernel and its
+# plain version add the same f32 values in another order.
+COMBINE_TOL = 1e-5
+# Ids as text repeats them: each request draws ranks from a Zipf law
+# (exponent 1) over this many ranks, mapped to its own random vocabulary
+# ids, so its most frequent ids recur tens of times in 1060 positions.
+ZIPF_RANKS = 1000
+ARGMAX_MODES = ("dense", "mxu", "pallas")
+# pallas mode with the kernel vs with its plain version: the same function,
+# only the order of the combine's f32 sums differs
+MIN_COMBINE_TOKEN_AGREEMENT = 0.99
+# continuous serving: requests, refill width, steps per chunk, the refill
+# coalescing variant, caps drawn over [CAP_LO, T_ANS], and the two pool
+# buckets (passages) of the multi-lane run
+N_REQUESTS, REFILL, CHUNK_STEPS, REFILL_MIN, CAP_LO = 512, 16, 8, 8, 8
+BUCKETS = (5, P)
+MHA_PER_ENCODE = sum(MHA_SITES.values())    # fused_mha launches per encode
+
+
+def zipf_ids(rng, n: int) -> np.ndarray:
+    """``n`` token ids of one request, drawn as ZIPF_RANKS says."""
+    p = 1.0 / np.arange(1, ZIPF_RANKS + 1)
+    vocab = rng.choice(np.arange(4, V), ZIPF_RANKS, replace=False)
+    return vocab[rng.choice(ZIPF_RANKS, n, p=p / p.sum())].astype(np.int32)
+
+
+def make_requests(rng, n: int):
+    """``n`` requests (query 60, pool 10 x 100 with padded tails; a third
+    of them with only 5 passages) and their answer caps."""
+    q = np.zeros((n, 1, LQ), np.int32)
+    pool = np.zeros((n, P, LP), np.int32)
+    for i in range(n):
+        ids = zipf_ids(rng, LQ + P * LP)
+        nq = rng.randint(LQ // 3, LQ + 1)
+        q[i, 0, :nq] = ids[:nq]
+        n_pass = BUCKETS[0] if i % 3 == 0 else P
+        for k in range(n_pass):
+            n_tok = rng.randint(LP // 2, LP + 1)
+            pool[i, k, :n_tok] = ids[LQ + k * LP:LQ + k * LP + n_tok]
+    caps = rng.randint(CAP_LO, T_ANS + 1, n).astype(np.int32)
+    return {"query": q, "passage": pool}, caps
+
+
+def take(arrays, idx):
+    return {k: v[idx] for k, v in arrays.items()}
+
+
+def check_and_time_combine(dev, reqs):
+    """combine_copy_mass against its plain version at COMBINE_SHAPES (bf16
+    copy mass, as the decode gives it): per element within COMBINE_TOL of
+    the row's mass, and the argmax of ``b_at + comb`` picks the same id on
+    every row. Times per launch: the kernel, its plain version, and the
+    dense scatter_add_ + gather pair as yardstick."""
+    from case_rg_tpu_torch.kernels import copy_argmax as ca
+    rng = np.random.RandomState(5)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    for b, ls in COMBINE_SHAPES:
+        if (b, ls) == (B, LS):        # the served layout, padding and all
+            ids = np.concatenate([reqs["query"][:B, 0],
+                                  reqs["passage"][:B].reshape(B, -1)], 1)
+        else:
+            ids = np.zeros((b, ls), np.int32)
+            for r in range(b):
+                n = rng.randint(ls // 2, ls + 1)
+                ids[r, :n] = zipf_ids(rng, n)
+        cw = rng.rand(b, ls) * (ids != 0)
+        cw = cw / cw.sum(-1, keepdims=True) * rng.uniform(0.2, 1.0, (b, 1))
+        ids_t = torch.from_numpy(ids).to(dev)
+        cw_t = torch.from_numpy(cw.astype(np.float32)).to(dev).to(
+            torch.bfloat16)
+        out = ca.combine_copy_mass(cw_t, ids_t)
+        ref = ca.combine_copy_mass_plain(cw_t, ids_t)
+        torch.cuda.synchronize()
+        mass = cw_t.float().sum(-1, keepdim=True)
+        rel = ((out - ref).abs() / mass).max().item()
+        check(rel <= COMBINE_TOL, f"combine_copy_mass {(b, ls)}: kernel vs "
+              f"plain {rel} of the row's mass > {COMBINE_TOL}")
+        # generator mass at each id (the same for every member of a group)
+        b_at = (0.05 * torch.rand(b, V, generator=gen, device=dev)).gather(
+            1, ids_t.long())
+        pick = lambda c: ids_t.gather(1, (b_at + c).argmax(-1, keepdim=True))
+        check(torch.equal(pick(out), pick(ref)),
+              f"combine_copy_mass {(b, ls)}: the candidate argmax differs")
+        groups = [np.unique(r[r != 0], return_counts=True)[1] for r in ids]
+        ids_l, cw_f = ids_t.long(), cw_t.float()
+        kernel = lambda: ca.combine_copy_mass(cw_t, ids_t)
+        # device time: a launch takes less than the host needs to issue the
+        # next one, so back-to-back launches timed by events read the host
+        ms = device_ms(kernel)
+        issue_ms = time_ms(kernel, iters=200)
+        plain = device_ms(lambda: ca.combine_copy_mass_plain(cw_t, ids_t),
+                          iters=20)
+        lib = device_ms(lambda: torch.zeros(b, V, device=dev).scatter_add_(
+            1, ids_l, cw_f).gather(1, ids_l))
+        # operations the function needs, not the kernel's brute-force
+        # compare per (l, j) pair: per row a sort of (id, position) pairs
+        # (ls * ceil(log2 ls) compares), a segmented sum and the write-back
+        # (one operation each per position), all SIMT
+        n_ops = b * ls * (int(np.ceil(np.log2(ls))) + 2)
+        b_ms, b_by = bound_ms(nbytes(cw_t, ids_t, out), n_ops, PEAK_F32_FLOPS)
+        rows.append({"B": b, "Ls": ls, "max_rel_err": rel,
+                     "max_abs_err": (out - ref).abs().max().item(),
+                     "largest_group": int(max(g.max() for g in groups)),
+                     "mean_group": float(np.mean([g.mean() for g in groups])),
+                     "ms": ms, "issue_ms": issue_ms, "plain_ms": plain,
+                     "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
+    return rows
+
+
+def serve_argmax_modes(dev, cfg, model, reqs):
+    """Two B=64 batches through make_predict_fn in each argmax mode, the
+    combine's launches counted; pallas mode again with the kernel's wrapper
+    swapped for its plain version. Candidate modes are held to dense as the
+    kernels are to their plain versions (answers of a random-weight model
+    tip at near-ties), the kernel to its plain version at
+    MIN_COMBINE_TOKEN_AGREEMENT."""
+    from case_rg_tpu_torch.kernels import copy_argmax as ca
+    from case_rg_tpu_torch.runtime.inference import make_predict_fn
+    batches = [take(reqs, slice(i * B, (i + 1) * B)) for i in range(2)]
+    predict = {mode: make_predict_fn(model, cfg, T_ANS, fast_argmax=mode,
+                                     device=dev) for mode in ARGMAX_MODES}
+    outs, res = {}, {m: {"ms_per_batch": []} for m in ARGMAX_MODES}
+    for mode in ARGMAX_MODES:
+        predict[mode](batches[0])          # warm-up
+    torch.cuda.synchronize()
+    # in turns (dense, mxu, pallas, pallas, mxu, dense): the host's clock
+    # drifts with the shared host
+    for mode in ARGMAX_MODES + ARGMAX_MODES[::-1]:
+        ca.LAUNCHES = 0
+        got, times = serve(predict[mode], batches)
+        want = T_ANS * len(batches) if mode == "pallas" else 0
+        check(ca.LAUNCHES == want, f"{mode}: combine_copy_mass launched "
+              f"{ca.LAUNCHES} times, expected {want}")
+        if mode in outs:
+            check(all(torch.equal(a["answer"], b["answer"])
+                      for a, b in zip(got, outs[mode])),
+                  f"{mode}: two runs of the same batches differ")
+        outs[mode] = got
+        res[mode]["ms_per_batch"] += times
+        res[mode]["combine_launches_per_batch"] = want // len(batches)
+    for mode in ARGMAX_MODES:
+        res[mode]["profile"] = profile_device(predict[mode], batches[:1])
+    kernel = ca.combine_copy_mass
+    try:
+        ca.combine_copy_mass = ca.combine_copy_mass_plain
+        ca.LAUNCHES = 0
+        plain_outs, plain_times = serve(make_predict_fn(
+            model, cfg, T_ANS, fast_argmax="pallas", device=dev), batches)
+        check(ca.LAUNCHES == 0, "combine_copy_mass launched while swapped")
+    finally:
+        ca.combine_copy_mass = kernel
+    vs_plain = agreement(outs["pallas"], plain_outs)
+    check(vs_plain["token_agreement"] >= MIN_COMBINE_TOKEN_AGREEMENT,
+          f"pallas mode, kernel vs plain combine: {vs_plain}")
+    res["pallas_plain_combine"] = {"ms_per_batch": plain_times,
+                                   "vs_kernel": vs_plain}
+    for mode in ("mxu", "pallas"):
+        got = agreement(outs[mode], outs["dense"])
+        check(got["token_agreement"] >= MIN_TOKEN_AGREEMENT
+              and got["first_token_agreement"] >= MIN_FIRST_TOKEN_AGREEMENT,
+              f"answers, {mode} vs dense: {got}")
+        res[mode]["vs_dense"] = got
+    return res
+
+
+def serve_continuous(dev, cfg, model, reqs, caps):
+    """Continuous serving at full width: N_REQUESTS requests through
+    run_continuous (batch 64, refill 16, chunks of 8 steps, pallas mode),
+    every launch counter set to 0 just before the base run and read just
+    after; then lookahead, async harvest and refill coalescing (answers
+    equal to the base run's, token for token), the multi-lane driver over
+    two pool buckets, the one-shot predict of the same requests (answers
+    cut at each cap held to agreement, rank within RANK_ULPS), dense mode
+    for its time, and a profile."""
+    from case_rg_tpu_torch.kernels import copy_argmax as ca
+    from case_rg_tpu_torch.kernels import decoder_stack as ds
+    from case_rg_tpu_torch.kernels import encoder_attention as ea
+    from case_rg_tpu_torch.runtime.continuous import (
+        Lane, make_continuous_fns, run_continuous, run_continuous_multi)
+    from case_rg_tpu_torch.runtime.inference import make_predict_fn
+    n = len(caps)
+
+    def batch_maker(arrays):
+        def make_batch(items, bs):
+            idx = [r["i"] for r in items]
+            idx += [idx[-1]] * (bs - len(idx))     # padding rows repeat
+            return dict(take(arrays, idx), response_cap=caps[idx])
+        return make_batch
+
+    fns = {mode: make_continuous_fns(model, T_ANS, CHUNK_STEPS,
+                                     fast_argmax=mode, device=dev)
+           for mode in ("pallas", "dense")}
+    items = lambda k: iter([{"i": i} for i in range(k)])
+
+    def timed(drive, k):
+        got = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = drive(lambda r, ids, rk: got.__setitem__(
+            r["i"], (ids.copy(), rk.copy())))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(stats["served"] == k and sorted(got) == list(range(k)),
+              f"continuous: served {stats['served']} of {k}")
+        stats.update(requests_per_s=k / wall, wall_s=wall,
+                     ms_per_chunk=wall * 1e3 / stats["chunks"])
+        return got, stats
+
+    def single(k=n, mode="pallas", **opts):
+        return timed(lambda emit: run_continuous(
+            items(k), batch_maker(reqs), *fns[mode], batch_size=B,
+            refill=REFILL, emit=emit, **opts), k)
+
+    single()                                  # warm-up
+    ea.LAUNCHES = ds.LAUNCHES = ca.LAUNCHES = 0
+    base, stats = single()
+    launches = {"fused_mha": ea.LAUNCHES, "stack_step": ds.LAUNCHES,
+                "combine_copy_mass": ca.LAUNCHES}
+    want = {"fused_mha": MHA_PER_ENCODE * (1 + stats["refills"]),
+            "stack_step": CHUNK_STEPS * stats["chunks"],
+            "combine_copy_mass": CHUNK_STEPS * stats["chunks"]}
+    check(launches == want, f"continuous launches {launches}, expected {want}")
+    res = {"base": dict(stats, launches=launches)}
+    _, res["dense"] = single(mode="dense")
+
+    def same_as_base(got, what):
+        bad = [i for i in got if not np.array_equal(got[i][0], base[i][0])]
+        check(not bad, f"continuous {what}: {len(bad)} answers differ from "
+              f"the base run's (first: request {bad[:1]})")
+
+    for name, opts in (("lookahead", {"lookahead": True}),
+                       ("async_harvest", {"async_harvest": True}),
+                       ("refill_min", {"refill_min": REFILL_MIN})):
+        got, res[name] = single(**opts)
+        same_as_base(got, name)
+
+    # multi-lane: one lane per pool bucket; a request goes to the smallest
+    # bucket that holds its non-empty passages
+    used = (reqs["passage"] != 0).any(-1).sum(-1)
+    lanes = {p: Lane(p, batch_maker(dict(reqs, passage=reqs["passage"][:, :p])),
+                     *fns["pallas"], batch_size=B, refill=REFILL)
+             for p in BUCKETS}
+    route = lambda r: lanes[min(p for p in BUCKETS if used[r["i"]] <= p)]
+    got, res["multi_lane"] = timed(lambda emit: run_continuous_multi(
+        items(n), list(lanes.values()), route, emit=emit), n)
+    full = [i for i in range(n) if used[i] > BUCKETS[0]]
+    same_as_base({i: got[i] for i in full}, "multi-lane, full bucket")
+    res["multi_lane"]["small_bucket_vs_base"] = answer_agreement(
+        {i: got[i] for i in range(n) if used[i] <= BUCKETS[0]}, base, caps,
+        cfg.eos_id)
+
+    # the same requests through the one-shot predict (pallas mode)
+    predict = make_predict_fn(model, cfg, T_ANS, fast_argmax="pallas",
+                              device=dev)
+    one = {}
+    for s in range(0, n, B):
+        out = predict(take(reqs, slice(s, s + B)))
+        for i, (a, r) in enumerate(zip(out["answer"].cpu().numpy(),
+                                       out["rank"].float().cpu())):
+            one[s + i] = (a, r)
+    vs_one = answer_agreement(base, one, caps, cfg.eos_id)
+    vs_one["rank_max_ulps"] = max(bf16_ulps(torch.from_numpy(base[i][1]),
+                                            one[i][1])[0] for i in range(n))
+    check(vs_one["token_agreement"] >= MIN_TOKEN_AGREEMENT
+          and vs_one["first_token_agreement"] >= MIN_FIRST_TOKEN_AGREEMENT
+          and vs_one["rank_max_ulps"] <= RANK_ULPS,
+          f"continuous vs one-shot predict: {vs_one}")
+    res["vs_one_shot"] = vs_one
+    # pallas and dense once more, in the reverse order (pallas, dense, ...,
+    # dense, pallas): the host's clock drifts with the shared host
+    _, res["dense_again"] = single(mode="dense")
+    got, res["base_again"] = single()
+    same_as_base(got, "base again")
+    res["profile"] = profile_device(lambda k: single(k=k), [2 * B])
+    return res
+
+
+def answer_agreement(got, ref, caps, eos):
+    """Shares of answer tokens (each request's first ``cap`` positions, the
+    reference cut at the cap and its first EOS) and of first tokens that
+    agree between two {request: (answer, rank)} maps."""
+    same = total = first = 0
+    for i in got:
+        a, r = got[i][0], ref[i][0].copy()
+        cap = int(caps[i])
+        hits = np.flatnonzero(r[:cap] == eos)
+        r[(hits[0] + 1 if len(hits) else cap):] = 0
+        same += int((a[:cap] == r[:cap]).sum())
+        total += cap
+        first += int(a[0] == r[0])
+    return {"token_agreement": same / max(total, 1),
+            "first_token_agreement": first / max(len(got), 1),
+            "requests": len(got)}
+
+
+# ---- phase 8: training ----
 
 VARIANTS = {"mask": False, "rng": True}     # kernel variant -> in-kernel RNG
 
@@ -841,8 +1194,16 @@ def main() -> int:
     print("fused_mha sites: " + json.dumps(mha_rows), flush=True)
     stack = check_and_time_stack(dev)
     print("stack_step: " + json.dumps(stack), flush=True)
-    serve = serve_case(dev)
+    cfg, model = serving_model(dev)
+    serve = serve_case(dev, cfg, model)
     print("case serving: " + json.dumps(serve), flush=True)
+    reqs, caps = make_requests(np.random.RandomState(3), N_REQUESTS)
+    combine = check_and_time_combine(dev, reqs)
+    print("combine_copy_mass: " + json.dumps(combine), flush=True)
+    modes = serve_argmax_modes(dev, cfg, model, reqs)
+    print("argmax modes: " + json.dumps(modes), flush=True)
+    cont = serve_continuous(dev, cfg, model, reqs, caps)
+    print("continuous serving: " + json.dumps(cont), flush=True)
     tmha, tmha_rows = check_and_time_train_mha(dev, gen)
     print("train attention sites: " + json.dumps(tmha_rows), flush=True)
     print("train attention probe: " + json.dumps(probe_rng_mask(dev)),
@@ -882,6 +1243,15 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+    c = combine[0]                      # the decode's shape
+    kernels.append({
+        "name": "combine_copy_mass", "route": "cuda",
+        "source": "case_rg_tpu_torch/csrc/copy_argmax.cu",
+        "replaces": "case_rg_tpu/kernels/copy_argmax.py:153",
+        "launches": cont["base"]["launches"]["combine_copy_mass"],
+        "max_abs_err": max(r["max_abs_err"] for r in combine),
+        "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+        "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

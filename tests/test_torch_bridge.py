@@ -14,6 +14,7 @@ from case_rg_tpu_torch.bridge import load_jax_params, state_dict_from_jax
 from case_rg_tpu_torch.config import ModelConfig
 from case_rg_tpu_torch.models import create_model
 from case_rg_tpu_torch.models.case import CaSEModel
+from tests.test_torch_kernels import one_torch_thread  # noqa: F401
 
 TOY = dict(name="case", vocab_size=64, embedding_size=16, hidden_size=16,
            num_heads=2, enc_layers=1, dec_layers=2, max_dec_len=8)

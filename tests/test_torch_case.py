@@ -23,6 +23,7 @@ from case_rg_tpu_torch.models import create_model, multimem
 from case_rg_tpu_torch.ops import attention
 from case_rg_tpu_torch.runtime.inference import make_predict_fn
 from tests.test_torch_bridge import TOY, init_batch
+from tests.test_torch_kernels import one_torch_thread  # noqa: F401
 from tests.test_torch_kernels import perturb_affine_tree
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent

@@ -28,6 +28,19 @@ from case_rg_tpu_torch.ops.transformer import Decoder as TDecoder
 torch.set_float32_matmul_precision("highest")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while a module of the port's tests runs (the
+    port's test modules import this fixture): the suite runs six workers on
+    one host, and small ops spread over every core stall each other (16
+    tests of small ops took 84 s with 8 threads and 10 s with 1 under that
+    load). Restored afterwards."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 @pytest.fixture(scope="module")
 def jx():
     """The JAX side: jax, jax.numpy and the JAX package's kernel modules."""

@@ -30,6 +30,7 @@ from case_rg_tpu_torch.ops import interaction as tinter
 from case_rg_tpu_torch.ops import masking as tmask
 from case_rg_tpu_torch.ops import positional as tpos
 from case_rg_tpu_torch.ops import transformer as ttr
+from tests.test_torch_kernels import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 torch.set_float32_matmul_precision("highest")

@@ -34,6 +34,7 @@ from case_rg_tpu_torch.ops import attention
 from case_rg_tpu_torch.train.schedule import cosine_hard_restarts_with_warmup
 from case_rg_tpu_torch.train.trainer import Trainer
 from tests.test_torch_bridge import TOY, jax_case_params
+from tests.test_torch_kernels import one_torch_thread  # noqa: F401
 
 torch.set_float32_matmul_precision("highest")
 CFG = dict(TOY, dropout=0.0)

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from case_rg_tpu_torch.kernels import train_attention as ta
+from tests.test_torch_kernels import one_torch_thread  # noqa: F401
 
 torch.set_float32_matmul_precision("highest")
 RATE = 0.1
