@@ -21,10 +21,12 @@ def resolve_device(device="cuda") -> torch.device:
 
 def batch_to_device(batch: dict, device: torch.device) -> dict:
     """A batch of numpy arrays or tensors on ``device``: integer fields as
-    int64 (ids, labels), float fields as they are."""
+    int64 (ids, labels, u32 sampling keys), float fields as they are."""
     out = {}
     for k, v in batch.items():
         if isinstance(v, np.ndarray):
+            if v.dtype == np.uint32:
+                v = v.astype(np.int64)
             v = torch.from_numpy(v)
         if not v.is_floating_point():
             v = v.long()

@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
+from ..decode.loops import keys_from_seed
 from ..ops.masking import padding_mask
 from .base import bce_with_logits, nll_from_probs, one_hot_labels
 from .components import TransformerSeqEncoder
@@ -130,16 +131,40 @@ class CaSEModel(nn.Module):
         return self._encode_select(batch)[-1]
 
     def predict(self, batch, *, max_len: int, early_exit: bool = False,
-                fast_argmax=None) -> Dict[str, torch.Tensor]:
-        """Greedy response generation plus pool scores (ref:
-        CaSE/Model.py:313-331 do_test). ``early_exit`` and ``fast_argmax``
-        as on ``MultiMemoryDecoder.decode``."""
+                fast_argmax=None, beam_width: int = 1,
+                sample_keys: Optional[torch.Tensor] = None,
+                sample_seed: Optional[int] = None,
+                temperature: float = 1.0, top_k: int = 0,
+                top_p: float = 1.0) -> Dict[str, torch.Tensor]:
+        """Response generation plus pool scores (ref: CaSE/Model.py:313-331
+        do_test). Greedy by default (``early_exit`` and ``fast_argmax`` as
+        on ``MultiMemoryDecoder.decode``); ``beam_width > 1``: beam search;
+        categorical sampling (beyond the reference) when ``sample_keys``
+        ([B, 2] per-row keys) or ``sample_seed`` (derives them:
+        ``decode.loops.keys_from_seed``) is given, the keys first, with the
+        temperature/top_k/top_p controls."""
         st = self.stages(batch)
         memories, keeps, weights, src_ids, answer_rep = \
             self._decoder_inputs(batch, st)
-        ids = self.decoder.decode(memories, keeps, weights, src_ids, max_len,
-                                  feature=answer_rep, early_exit=early_exit,
-                                  fast_argmax=fast_argmax)
+        if sample_seed is not None and sample_keys is None:
+            sample_keys = keys_from_seed(sample_seed, memories[0].shape[0])
+        if sample_keys is not None:
+            if beam_width > 1:
+                raise ValueError("sampling and beam_width > 1 exclude each "
+                                 "other (pick one decode strategy)")
+            ids = self.decoder.sample(memories, keeps, weights, src_ids,
+                                      max_len, sample_keys, feature=answer_rep,
+                                      unk_id=self.cfg.unk_id,
+                                      temperature=temperature, top_k=top_k,
+                                      top_p=top_p)
+        elif beam_width > 1:
+            ids = self.decoder.beam(memories, keeps, weights, src_ids,
+                                    max_len, beam_width, feature=answer_rep)
+        else:
+            ids = self.decoder.decode(memories, keeps, weights, src_ids,
+                                      max_len, feature=answer_rep,
+                                      early_exit=early_exit,
+                                      fast_argmax=fast_argmax)
         return {"answer": ids, "rank": st["passage_score"]}
 
     # ---- continuous-batching serving (runtime/continuous): encode + the
@@ -149,18 +174,26 @@ class CaSEModel(nn.Module):
     def decode_init(self, batch, *, max_len: int, fast_argmax=None):
         """(state, rank): the chunk-decode state of this batch and its pool
         scores. ``batch["response_cap"]`` [B], if present, caps each row's
-        answer."""
+        answer; ``batch["sample_key"]`` [B, 2] and ``batch["sample_ctl"]``
+        [B, 3], if present, are the rows' sampling keys and controls
+        (``MultiMemoryDecoder.chunk_init``)."""
         st = self.stages(batch)
         memories, keeps, weights, src_ids, answer_rep = \
             self._decoder_inputs(batch, st)
         state = self.decoder.chunk_init(memories, keeps, weights, src_ids,
                                         max_len, feature=answer_rep,
                                         fast_argmax=fast_argmax,
-                                        row_max=batch.get("response_cap"))
+                                        row_max=batch.get("response_cap"),
+                                        row_keys=batch.get("sample_key"),
+                                        row_ctl=batch.get("sample_ctl"))
         return state, st["passage_score"]
 
     def decode_chunk(self, state, *, n_steps: int, fast_argmax=None,
-                     sampling: bool = False):
+                     sampling: bool = False, temperature: float = 1.0,
+                     top_k: int = 0, top_p: float = 1.0):
         return self.decoder.chunk_step(state, n_steps,
                                        fast_argmax=fast_argmax,
-                                       sampling=sampling)
+                                       sampling=sampling,
+                                       unk_id=self.cfg.unk_id,
+                                       temperature=temperature, top_k=top_k,
+                                       top_p=top_p)

@@ -1,9 +1,10 @@
 """Multi-memory transformer decoder with copy extension (port of
 ``case_rg_tpu/models/multimem.py``: teacher forcing for training, greedy
 decoding in one shot or in chunks with per-row progress for continuous
-batching, and the three argmax epilogues: the dense copy scatter, and the
+batching, the three argmax epilogues (the dense copy scatter, and the
 candidate argmax with its duplicate-id combine by a batched product or by
-the ``combine_copy_mass`` kernel).
+the ``combine_copy_mass`` kernel), categorical sampling in one shot or in
+chunks, and beam search).
 
 M chained per-memory decoder stacks; the copy attention for memory i
 queries the stream after stack i, before the final norm; per-memory copy
@@ -20,6 +21,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..decode.loops import (pick_by_uniform, run_beam, sample_uniforms,
+                            sampling_controls, sampling_controls_rows,
+                            tile_state, validate_controls)
 from ..kernels import copy_argmax
 from ..kernels.copy_argmax import gather_weight_columns
 from ..kernels.decoder_stack import fold_stack_weights, stack_step
@@ -331,6 +335,24 @@ class MultiMemoryDecoder(nn.Module):
         c_idx = ids_cat.gather(-1, c_pos)[:, 0]
         return torch.where(c_val > g_val, c_idx, g_idx[:, 0]).to(torch.int32)
 
+    def _sample_next(self, mix_p, ps, gen_logits, src_ids, u,
+                     controls) -> torch.Tensor:
+        """A draw from the copy-extended distribution for one step, at the
+        rows' uniforms ``u`` [B]: the log of the distribution (+1e-10) in
+        f32 under the sampling controls, ``controls`` either a
+        (temperature, top_k, top_p) triple for every row or a [B, 3] f32
+        tensor of per-row controls. Returns [B] int32."""
+        dist = self._extend_dist(softmax(gen_logits, dim=-1), mix_p, ps,
+                                 src_ids)
+        logits = torch.log(dist[:, 0].float() + 1e-10)
+        if isinstance(controls, torch.Tensor):
+            logits = sampling_controls_rows(logits, controls[:, 0],
+                                            controls[:, 1].long(),
+                                            controls[:, 2])
+        else:
+            logits = sampling_controls(logits, *controls)
+        return pick_by_uniform(logits, u)
+
     # ---- chunked greedy decoding with per-row progress (continuous
     #      batching: rows refilled mid-flight sit at different absolute
     #      positions; the decode math is row-independent, so a request's
@@ -339,7 +361,9 @@ class MultiMemoryDecoder(nn.Module):
     def chunk_init(self, memories, mem_keeps, weights, src_ids, max_len: int,
                    feature: Optional[torch.Tensor] = None,
                    fast_argmax=None,
-                   row_max: Optional[torch.Tensor] = None) -> dict:
+                   row_max: Optional[torch.Tensor] = None,
+                   row_keys: Optional[torch.Tensor] = None,
+                   row_ctl: Optional[torch.Tensor] = None) -> dict:
         """The per-row decode state that ``chunk_step`` advances. Every
         tensor in it is [B, ...], so a serving driver can scatter fresh rows
         (from a ``chunk_init`` on new requests) into a live state with
@@ -347,7 +371,17 @@ class MultiMemoryDecoder(nn.Module):
         weights on the decoder (``_folded``) and a None in ``cross``.
 
         ``row_max`` [B]: per-row response caps; a row ends at its own cap
-        instead of ``max_len``."""
+        instead of ``max_len``.
+
+        ``row_keys`` [B, 2]: per-row sampling keys (two u32 words) for
+        sampled chunks (``chunk_step(sampling=True)``). The key rides with
+        its row; the state keeps the row's uniforms for every step
+        (``decode.loops.sample_uniforms``), and step ``trow`` draws at its
+        own, so a request's sampled tokens depend only on its inputs and
+        key, not on its batch, the chunk size or refill timing.
+        ``row_ctl`` [B, 3] f32: per-row sampling controls (temperature,
+        top_k, top_p), applied by ``decode.loops.sampling_controls_rows``
+        instead of the chunk's batch-wide controls."""
         b = memories[0].shape[0]
         dev = memories[0].device
         fast_argmax, use_kernel_comb = self._resolve_fast_argmax(fast_argmax)
@@ -359,7 +393,7 @@ class MultiMemoryDecoder(nn.Module):
             row_max = torch.full((b,), max_len, dtype=torch.long, device=dev)
         else:
             row_max = row_max.to(device=dev, dtype=torch.long).clamp(1, max_len)
-        return {
+        state = {
             "caches": self._init_caches(b, max_len, memories),
             "cross": cross, "key_projs": key_projs, "feat": feat,
             "memories": list(memories), "mem_keeps": list(mem_keeps),
@@ -373,10 +407,18 @@ class MultiMemoryDecoder(nn.Module):
             "out": torch.zeros(b, max_len, dtype=torch.int32, device=dev),
             "row_max": row_max,
         }
+        if row_keys is not None:
+            state["u"] = sample_uniforms(
+                row_keys.to(device=dev, dtype=torch.int64), max_len)
+        if row_ctl is not None:
+            state["ctl"] = row_ctl.to(device=dev, dtype=torch.float32)
+        return state
 
     def chunk_step(self, state: dict, n_steps: int, fast_argmax=None,
-                   sampling: bool = False) -> dict:
-        """Advance every row that is not done by ``n_steps`` greedy steps.
+                   sampling: bool = False, unk_id: int = 2,
+                   temperature: float = 1.0, top_k: int = 0,
+                   top_p: float = 1.0) -> dict:
+        """Advance every row that is not done by ``n_steps`` decode steps.
 
         A row becomes done when it emits EOS or reaches its cap; done rows
         freeze (they are pointed at position ``max_len``, where every write
@@ -384,10 +426,23 @@ class MultiMemoryDecoder(nn.Module):
         the state with. The KV caches and the history mask are updated in
         place; ``prev``, ``trow``, ``done`` and ``out`` are fresh tensors in
         the returned state, so a driver may still read the previous
-        state's."""
+        state's.
+
+        ``sampling=True`` draws each step from the extended distribution
+        instead of arg-maxing (the state needs ``chunk_init``'s
+        ``row_keys``), with ``sample``'s bookkeeping: an EOS at a row's
+        step 0 is written as UNK (and ends the row), the row's last step
+        is EOS. The controls are the state's per-row ``ctl`` if it has
+        them, else (temperature, top_k, top_p). With the same keys a
+        request's answer is ``sample``'s, bit for bit."""
         if sampling:
-            raise ValueError("sampled continuous decoding is not ported yet "
-                             "(greedy only)")
+            if "u" not in state:
+                raise ValueError("sampled chunks need per-row keys: "
+                                 "chunk_init(row_keys=...)")
+            controls = state.get("ctl")
+            if controls is None:
+                validate_controls(temperature, top_k, top_p)
+                controls = (temperature, top_k, top_p)
         fast_argmax, use_kernel_comb = self._resolve_fast_argmax(fast_argmax)
         memories, mem_keeps, weights, src_ids = (
             state["memories"], state["mem_keeps"], state["weights"],
@@ -406,12 +461,21 @@ class MultiMemoryDecoder(nn.Module):
             mix_p, ps, gen_h, gen_logits = self._step_core(
                 caches, prev, hist, t_w, cross, key_projs, feat, memories,
                 mem_keeps, weights)
-            nxt = self._greedy_next(mix_p, ps, gen_h, gen_logits,
-                                    src_ids, ids_cat, extras, fast_argmax,
-                                    use_kernel_comb)
+            if sampling:
+                u = state["u"].gather(1, trow[:, None])[:, 0]
+                nxt = self._sample_next(mix_p, ps, gen_logits, src_ids, u,
+                                        controls)
+                raw_end = nxt == self.eos_id
+                nxt = torch.where((trow == 0) & raw_end, unk_id, nxt)
+                nxt = torch.where(trow >= row_max - 1, self.eos_id, nxt)
+            else:
+                nxt = self._greedy_next(mix_p, ps, gen_h, gen_logits,
+                                        src_ids, ids_cat, extras,
+                                        fast_argmax, use_kernel_comb)
+                raw_end = nxt == self.eos_id
             active = ~done
             write_step(out, nxt[:, None], t_w)
-            newly = active & ((nxt == self.eos_id) | (trow >= row_max - 1))
+            newly = active & (raw_end | (trow >= row_max - 1))
             prev = torch.where(active, nxt, prev)
             trow = torch.where(active & ~newly, trow + 1, trow)
             done = done | newly
@@ -458,3 +522,80 @@ class MultiMemoryDecoder(nn.Module):
             if early_exit:
                 ended |= prev == self.eos_id
         return out
+
+    # ---- categorical sampling (beyond the reference, which has only greedy
+    #      for these decoders) ----
+
+    def sample(self, memories, mem_keeps, weights, src_ids, max_len: int,
+               row_keys: torch.Tensor, feature: Optional[torch.Tensor] = None,
+               unk_id: int = 2, temperature: float = 1.0, top_k: int = 0,
+               top_p: float = 1.0) -> torch.Tensor:
+        """Samples each step from the extended (copy-mixed) distribution,
+        with the JAX package's bookkeeping: an EOS at t=0 is rewritten to
+        UNK, the final step forces EOS, and positions after a row's EOS
+        emit PAD. The temperature/top_k/top_p controls apply to the log of
+        the extended distribution (``decode.loops.sampling_controls``;
+        the defaults are identity). Row r draws at step t from its key
+        ``row_keys[r]`` [B, 2] alone (``decode.loops.sample_uniforms``), as
+        ``chunk_step(sampling=True)`` does. Returns [B, max_len] int32."""
+        validate_controls(temperature, top_k, top_p)
+        b = memories[0].shape[0]
+        dev = memories[0].device
+        cross, key_projs, feat = self._decode_precompute(memories, feature)
+        caches = self._init_caches(b, max_len, memories)
+        u = sample_uniforms(row_keys.to(device=dev, dtype=torch.int64),
+                            max_len)
+        prev = torch.full((b,), self.bos_id, dtype=torch.int32, device=dev)
+        hist = torch.zeros(b, max_len, dtype=torch.bool, device=dev)
+        out = torch.zeros(b, max_len, dtype=torch.int32, device=dev)
+        ended = torch.zeros(b, dtype=torch.bool, device=dev)
+        for t in range(max_len):
+            mix_p, ps, _, gen_logits = self._step_core(
+                caches, prev, hist, t, cross, key_projs, feat, memories,
+                mem_keeps, weights)
+            nxt = self._sample_next(mix_p, ps, gen_logits, src_ids, u[:, t],
+                                    (temperature, top_k, top_p))
+            this_end = nxt == self.eos_id
+            if t == 0:
+                nxt = torch.where(this_end, unk_id, nxt)
+            if t == max_len - 1:
+                nxt = torch.full_like(nxt, self.eos_id)
+            if t > 0:
+                nxt = torch.where(ended, 0, nxt)
+            ended |= this_end
+            out[:, t] = nxt
+            prev = nxt
+        return out
+
+    # ---- beam search (beyond the reference, which has only greedy for
+    #      these decoders; the vectorized beam of decode/loops) ----
+
+    def beam(self, memories, mem_keeps, weights, src_ids, max_len: int,
+             width: int, feature: Optional[torch.Tensor] = None
+             ) -> torch.Tensor:
+        """Beam search of ``width`` beams a row over the extended
+        distribution (``decode.loops.run_beam``). The per-row inputs are
+        repeated to B*width rows, each row's beams adjacent; every step
+        reorders the KV caches (either layout) and the history by the
+        surviving beams. Returns [B, max_len] int32, PAD after EOS."""
+        b = memories[0].shape[0]
+        memories, mem_keeps, weights, src_ids, feat_in = tile_state(
+            [memories, mem_keeps, weights, src_ids,
+             feature if self.use_feature else None], width)
+        cross, key_projs, feat = self._decode_precompute(memories, feat_in)
+        bw = b * width
+        state0 = {"caches": self._init_caches(bw, max_len, memories),
+                  "hist": torch.zeros(bw, max_len, dtype=torch.bool,
+                                      device=memories[0].device),
+                  "t": 0}
+
+        def step_fn(state, prev):
+            mix_p, ps, _, gen_logits = self._step_core(
+                state["caches"], prev, state["hist"], state["t"], cross,
+                key_projs, feat, memories, mem_keeps, weights)
+            dist = self._extend_dist(softmax(gen_logits, dim=-1), mix_p, ps,
+                                     src_ids)
+            return dist[:, 0], dict(state, t=state["t"] + 1)
+
+        return run_beam(step_fn, state0, b, max_len, width, self.bos_id,
+                        self.eos_id)

@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.decode_attention import (single_query_mha,
+                                       single_query_mha_plain)
 from ..kernels.encoder_attention import fused_mha
 from ..kernels.train_attention import (draw_seed, fused_train_mha,
                                        fused_train_mha_rng)
@@ -39,6 +41,12 @@ _FUSED_TRAIN_ATTN = None
 # the caller draws the [R, H, Lq, Lk] mask with the dense path's draw
 # (fused_train_mha; --no-kernel_rng_dropout).
 _FUSED_TRAIN_ATTN_RNG = True
+# Routing of single-query decode attention (``attend_with_kv_merged`` with
+# one query: every unfused decoder stack's self- and cross-attention in a
+# decode step) to the kernel (kernels/decode_attention.single_query_mha):
+# None = auto (bf16 on the card), True = always, False = never (the dense
+# ``single_query_mha_plain`` path).
+_SINGLE_QUERY_ATTN = None
 
 
 def set_fused_attention(on) -> None:
@@ -57,6 +65,20 @@ def set_fused_train_attn_rng(on: bool) -> None:
     """True: in-kernel Philox mask; False: caller-drawn mask."""
     global _FUSED_TRAIN_ATTN_RNG
     _FUSED_TRAIN_ATTN_RNG = bool(on)
+
+
+def set_single_query_attention(on) -> None:
+    """True=force, False=off, None=auto (bf16 on the card)."""
+    global _SINGLE_QUERY_ATTN
+    _SINGLE_QUERY_ATTN = on
+
+
+def _single_query_ok(q: torch.Tensor) -> bool:
+    if _SINGLE_QUERY_ATTN is False or q.shape[1] != 1:
+        return False
+    if _SINGLE_QUERY_ATTN:
+        return True
+    return q.dtype == torch.bfloat16 and q.device.type == "cuda"
 
 
 def _fused_attention_ok(dtype, attn_bias, need_weights) -> bool:
@@ -156,26 +178,15 @@ class MultiHeadAttention(nn.Module):
     def attend_with_kv_merged(self, q_in: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, key_keep=None,
                               q_projected: bool = False):
-        """Decode attention over merged-layout K/V [B, L, E].
-        ``q_projected=True`` skips the query projection."""
-        b, lq, e = q_in.shape
-        h = self.num_heads
-        d = e // h
-        q = (q_in if q_projected else self.project_q(q_in)).reshape(b, lq, h, d)
-        kh = k.reshape(b, -1, h, d)
-        vh = v.reshape(b, -1, h, d)
-        scale = torch.tensor(1.0 / np.sqrt(d)).to(device=q.device,
-                                                   dtype=q.dtype)
-        scores = torch.einsum("bqhd,bkhd->bhqk", (q * scale).float(),
-                              kh.float())
-        if key_keep is not None:
-            scores = _mask_scores(scores, key_keep)
-        probs = torch.softmax(scores, dim=-1)
-        if key_keep is not None:
-            probs = probs * key_keep.any(-1).to(probs.dtype)[:, None, None,
-                                                              None]
-        ctx = torch.einsum("bhqk,bkhd->bqhd", probs.to(vh.dtype), vh)
-        return self.out(ctx.reshape(b, lq, e)), None
+        """Decode attention over merged-layout K/V [B, L, E] (strided views
+        of a packed cache are read in place). ``q_projected=True`` skips
+        the query projection."""
+        q = q_in if q_projected else self.project_q(q_in)
+        if _single_query_ok(q):
+            ctx = single_query_mha(q, k, v, key_keep, self.num_heads)
+        else:
+            ctx = single_query_mha_plain(q, k, v, key_keep, self.num_heads)
+        return self.out(ctx), None
 
     def attend_with_kv(self, q_in: torch.Tensor, k: torch.Tensor,
                        v: torch.Tensor, *, attn_bias=None, key_keep=None,

@@ -1,4 +1,4 @@
-"""Continuous batching for greedy serving (port of
+"""Continuous batching for greedy and sampled serving (port of
 ``case_rg_tpu/runtime/continuous``; CaSE).
 
 A fixed-batch decode runs every row for all ``max_len`` steps (or, with
@@ -10,10 +10,11 @@ tracks the mean answer length instead of the longest.
 The decode state is a dict of fixed-shape [B, ...] tensors (per-row step
 indices, KV caches, memories, copy operands: ``models/multimem.py``
 ``chunk_init``/``chunk_step``); a refill is a row scatter of a freshly
-encoded state of ``refill`` rows into the live one. Greedy decode math is
-row-independent, so a request's answer is the one-shot ``predict``'s
-whatever the batch it rides in (bit for bit in f32 on the CPU; on a card
-the encode at another batch width may take other GEMM algorithms).
+encoded state of ``refill`` rows into the live one. The decode math is
+row-independent (a sampled row draws from its own key), so a request's
+answer is the one-shot ``predict``'s whatever the batch it rides in (bit
+for bit in f32 on the CPU; on a card the encode at another batch width may
+take other GEMM algorithms).
 
 Unlike the JAX package's functional state, the KV caches are updated in
 place on one CUDA stream; what a harvest reads (``done``, ``out``,

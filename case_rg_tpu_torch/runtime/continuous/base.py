@@ -12,6 +12,7 @@ from typing import Iterator, List
 import numpy as np
 import torch
 
+from ...decode.loops import validate_controls
 from ...device import batch_to_device, resolve_device
 
 
@@ -50,21 +51,29 @@ def refill_rows(state: dict, new_state: dict, rows) -> dict:
 
 def make_continuous_fns(model, max_len: int, chunk_steps: int,
                         fast_argmax=None, decoding: str = "greedy",
-                        device="cuda"):
+                        temperature: float = 1.0, top_k: int = 0,
+                        top_p: float = 1.0, device="cuda"):
     """(init_fn, chunk_fn, refill_fn) for a model with ``decode_init`` and
     ``decode_chunk`` (CaSE).
 
     init_fn(batch) -> (state, rank) moves the batch to the model's device
     and encodes it; chunk_fn(state) advances every live row by
-    ``chunk_steps`` greedy steps and returns the new state (the KV caches
+    ``chunk_steps`` decode steps and returns the new state (the KV caches
     are updated in place, so only the returned state may be advanced
     again); refill_fn(state, new_state, rows) is ``refill_rows``.
-    ``fast_argmax`` is the argmax mode (``MultiMemoryDecoder``). Raises
+    ``fast_argmax`` is the greedy argmax mode (``MultiMemoryDecoder``).
+
+    ``decoding="sample"`` samples each step instead (the temperature/top_k/
+    top_p controls, or a batch's per-row "sample_ctl" [B, 3]). Batches must
+    then carry "sample_key" [B, 2] per-row keys: a key rides with its row,
+    so a request's sampled answer is the one-shot ``sample``'s with the
+    same key, whatever its batch, chunk size or refill timing. Raises
     without a card unless ``device="cpu"``."""
-    if decoding == "sample":
-        raise ValueError("decoding='sample' is not ported yet (greedy only)")
-    if decoding != "greedy":
+    if decoding not in ("greedy", "sample"):
         raise ValueError(f"unknown decoding {decoding!r}")
+    sampling = decoding == "sample"
+    if sampling:
+        validate_controls(temperature, top_k, top_p)
     dev = resolve_device(device)
     where = next(model.parameters()).device
     if where.type != dev.type:
@@ -72,16 +81,24 @@ def make_continuous_fns(model, max_len: int, chunk_steps: int,
     if not hasattr(model, "decode_init"):
         raise ValueError(f"{type(model).__name__} has no chunked decode "
                          "(not ported yet)")
+    # sampling reads the dense extended distribution: no argmax operands
+    # ride in its state
+    fa = False if sampling else fast_argmax
+    extra = dict(sampling=True, temperature=temperature, top_k=top_k,
+                 top_p=top_p) if sampling else {}
 
     def init_fn(batch):
+        if sampling and batch.get("sample_key") is None:
+            raise ValueError("decoding='sample' needs per-row 'sample_key' "
+                             "keys in the batch")
         with torch.inference_mode():
             return model.decode_init(batch_to_device(batch, where),
-                                     max_len=max_len, fast_argmax=fast_argmax)
+                                     max_len=max_len, fast_argmax=fa)
 
     def chunk_fn(state):
         with torch.inference_mode():
             return model.decode_chunk(state, n_steps=chunk_steps,
-                                      fast_argmax=fast_argmax)
+                                      fast_argmax=fa, **extra)
 
     return init_fn, chunk_fn, refill_rows
 

@@ -6,12 +6,20 @@ card.
 
 In order it
   1. prints the card's name and power limit, builds the CUDA kernels from
-     case_rg_tpu_torch/csrc (nvcc, sm_90a) and prints the build time and
-     each kernel's registers and shared memory (ptxas -v);
+     case_rg_tpu_torch/csrc (nvcc, sm_90a, one process per source, all at
+     once) and prints the build time and each kernel's registers and shared
+     memory (ptxas -v);
   2. holds each kernel against its plain PyTorch version on the card, in
-     bf16, at the shapes CaSE serving gives it (tolerances below);
+     bf16, at the shapes CaSE serving gives it (tolerances below):
+     fused_mha, stack_step, single_query_mha (the query memory, the packed
+     self-attention history, beam rows, and a 1000-key check) and
+     additive_scores (a decode step and teacher forcing over each memory,
+     forward, and backward at teacher forcing);
   3. times each kernel, its plain version and, where one PyTorch call
-     computes the same function, that call (CUDA events, after warm-up);
+     computes the same function, that call (CUDA events, after warm-up),
+     beside the least time the card could take (bytes over 3.35 TB/s, or
+     operations over their peak; additive_scores' tanh over the
+     special-function unit's rate at the card's maximum clock);
   4. builds CaSE at the serving widths (V=30522, E=256, H=8, 3 encoder and
      2x4 decoder layers, bf16 weights drawn from a seed, with noisy biases
      and LayerNorm gains) and serves B=64 batches (query 60, pool 10x100,
@@ -20,10 +28,10 @@ In order it
      read just after. It serves the same batches twice more: with each
      kernel's wrapper swapped for its plain version (the same function with
      the same rounding points; answers gated at a stated agreement), and
-     with the kernels routed off (dense attention, per-layer decode chain;
-     rank gated, answers reported). Last, it profiles two batches with
-     torch.profiler: device busy and idle share, and the kernels that take
-     the most device time;
+     with the kernels routed off (dense attention, per-layer decode chain,
+     dense single-query attention and copy scores; rank gated, answers
+     reported). Last, it profiles two batches with torch.profiler: device
+     busy and idle share, and the kernels that take the most device time;
   5. holds combine_copy_mass, the copy-argmax combine, against its plain
      version at the decode's shape (B=64, source 60 + 10x100 = 1060, bf16
      copy mass, ids drawn Zipf-like so they repeat as text does, padding as
@@ -41,7 +49,17 @@ In order it
      token), through the multi-lane driver over pools of 5 and 10 passages,
      and through the one-shot predict (answers gated at stated agreements);
      dense mode once more for its time, and a profile;
-  8. trains CaSE at the same widths (dropout 0.1, B=64 batches with a
+  8. serves two B=64 batches with beam search (width 4), with sampling at
+     top_k=1 and with sampling at temperature 0.9, top_k 50, top_p 0.95,
+     and through the decoder's beam at width 1 (equal to greedy cut at its
+     first EOS; sampling at top_k=1 gated against greedy; sampling repeated
+     with the same keys equal bit for bit), each with the new kernels'
+     launches counted;
+  9. serves the 512 requests through continuous batching with sampling
+     (a key per request): launches counted around the base run, a repeat
+     equal bit for bit, the one-shot sampled predict with the same keys
+     gated at the stated agreements;
+ 10. trains CaSE at the same widths (dropout 0.1, B=64 batches with a
      response, passage and token labels; f32 masters, bf16 compute) through
      the train step of case_rg_tpu_torch.train.trainer. First it holds the
      four training-attention kernels (forward and backward of
@@ -49,12 +67,13 @@ In order it
      at the six shapes one train step gives them, times them beside
      scaled_dot_product_attention with dropout, and recovers the in-kernel
      dropout mask with a probe. Then, for each variant, it compares the
-     first step's loss and gradient with the kernels swapped for their plain
-     versions (same dropout bits), runs 10 steps on one repeated batch with
-     the kernels (launch counters set to 0 just before, read just after;
-     the loss must fall), the same 10 steps with the plain versions, and
-     profiles two steps with torch.profiler;
-  9. prints one JSON line {"kernels": [...]} and, last, the device line
+     first step's loss and gradient with the kernels (training attention
+     and additive_scores) swapped for their plain versions (same dropout
+     bits), runs 10 steps on one repeated batch with the kernels (launch
+     counters set to 0 just before, read just after; the loss must fall),
+     the same 10 steps with the plain versions, and profiles two steps with
+     torch.profiler;
+ 11. prints one JSON line {"kernels": [...]} and, last, the device line
      {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -142,6 +161,27 @@ FIRST_LOSS_RTOL = 1e-3
 FIRST_GRAD_COSINE = 0.9999
 TRAIN_STEPS, TRAIN_WARMUP = 10, 2
 
+# single_query_mha shapes: (rows, L, packed): the passage memory (a check
+# at 1000 keys), the query memory, the packed self-attention history
+# [B, T, 2E] and the query memory at beam rows (B x 4)
+BEAM_WIDTH = 4
+SQ_SHAPES = ((B, P * LP, False), (B, LQ, False), (B, T_ANS, True),
+             (B * BEAM_WIDTH, LQ, False))
+# additive_scores (T, L): a decode step over each memory, teacher forcing
+# over each memory
+ADD_DECODE = ((1, P * LP), (1, LQ))
+ADD_TRAIN = ((T_ANS, P * LP), (T_ANS, LQ))
+# Kernels against their plain versions, in bf16 ulps per element as above
+# (the same function with the same rounding points, sums in another order;
+# additive_scores' tanh is the special-function unit's, which may land one
+# bf16 ulp from the plain version's tanhf on some of the 256 terms). The
+# worst readings on an H100 were 1 ulp for each; each limit keeps a margin.
+SQ_ULPS = 2
+ADD_FWD_ULPS = 2
+ADD_BWD_ULPS = 4
+# sampled decoding's controls (phases 9-10)
+SAMPLE_CONTROLS = dict(temperature=0.9, top_k=50, top_p=0.95)
+
 
 class CheckFailed(RuntimeError):
     pass
@@ -188,6 +228,16 @@ def bound_ms(n_bytes: float, n_flops: float, peak_flops=PEAK_BF16_FLOPS):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_flops / peak_flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sfu_per_s() -> float:
+    """tanh.approx results a second: 16 per clock on each of 132 SMs at the
+    card's maximum SM clock (nvidia-smi)."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    return 16 * 132 * mhz * 1e6
 
 
 def nbytes(*tensors) -> int:
@@ -342,6 +392,142 @@ def check_and_time_stack(dev):
             "ulps_by_check": {k: u for k, (u, _) in readings.items()}}
 
 
+# ---- phase 2/3: single_query_mha and additive_scores ----
+
+def check_and_time_single_query(dev, gen):
+    """single_query_mha against its plain version at SQ_SHAPES (bf16; row 0
+    with no valid key; keys valid up to a length drawn per row, as over a
+    decode; the history's q, K and V strided views of packed projections),
+    with device times of the kernel, its plain
+    version and scaled_dot_product_attention (a yardstick of time only: it
+    gives NaN on a row with no valid key, so its row 0 keeps key 0), and the
+    byte bound of each shape. The total is per B=64 predict: 40 steps of 4
+    layers, each a history and a query-memory attention."""
+    from case_rg_tpu_torch.kernels import decode_attention as da
+    rows = []
+    for r, l, packed in SQ_SHAPES:
+        q = torch.randn(r, 1, E, generator=gen, device=dev).to(torch.bfloat16)
+        if packed:       # as the self-attention reads them, in place
+            q = torch.cat([q, q, q], -1)[..., :E]
+            cache = torch.randn(r, l, 2 * E, generator=gen,
+                                device=dev).to(torch.bfloat16)
+            k, v = cache[..., :E], cache[..., E:]
+        else:
+            k, v = (torch.randn(r, l, E, generator=gen, device=dev)
+                    .to(torch.bfloat16) for _ in range(2))
+        lengths = torch.randint(1, l + 1, (r,), generator=gen, device=dev)
+        keep = torch.arange(l, device=dev)[None, :] < lengths[:, None]
+        keep[0] = False
+        out = da.single_query_mha(q, k, v, keep, H)
+        ref = da.single_query_mha_plain(q, k, v, keep, H)
+        torch.cuda.synchronize()
+        ulps, err = bf16_ulps(out, ref)
+        check(ulps <= SQ_ULPS, f"single_query_mha {(r, l, packed)}: kernel "
+              f"vs plain {ulps} bf16 ulps > {SQ_ULPS}")
+        check(bool((out[0] == 0).all()),
+              "single_query_mha: a row with no valid key is not 0")
+        d = E // H
+        split = lambda x: x.view(r, -1, H, d).transpose(1, 2)
+        lib_keep = keep.clone()
+        lib_keep[:, 0] = True
+        ms = device_ms(lambda: da.single_query_mha(q, k, v, keep, H))
+        plain = device_ms(lambda: da.single_query_mha_plain(q, k, v, keep, H),
+                          iters=20)
+        lib = device_ms(lambda: F.scaled_dot_product_attention(
+            split(q), split(k), split(v),
+            attn_mask=lib_keep[:, None, None, :]))
+        valid = int(keep.sum().item())
+        # q, keep and out, and K and V rows of the valid keys
+        n_bytes = nbytes(q, keep, out) + valid * 2 * E * 2
+        b_ms, b_by = bound_ms(n_bytes, 4 * valid * E)
+        rows.append({"rows": r, "L": l, "packed": packed, "max_ulps": ulps,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                     "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
+    per_site = DEC_LAYERS * T_ANS          # launches of each site a predict
+    sites = [x for x in rows if (x["rows"], x["L"]) in ((B, LQ), (B, T_ANS))]
+    total = {k: per_site * sum(x[k] for x in sites)
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    total.update(bound_by="bytes", launches_per_predict=2 * per_site,
+                 max_abs_err=max(x["max_abs_err"] for x in rows),
+                 max_ulps=max(x["max_ulps"] for x in rows))
+    return total, rows
+
+
+def additive_inputs(t, l, gen, dev):
+    """wq [B, t, E], uh [B, l, E], v [E] and an upstream gradient, bf16,
+    at the scale the copy attention gives them (projections of normed
+    streams: entries of order 1)."""
+    wq = torch.randn(B, t, E, generator=gen, device=dev).to(torch.bfloat16)
+    uh = torch.randn(B, l, E, generator=gen, device=dev).to(torch.bfloat16)
+    v = (torch.randn(E, generator=gen, device=dev) / 16).to(torch.bfloat16)
+    g = torch.randn(B, t, l, generator=gen, device=dev).to(torch.bfloat16)
+    return wq, uh, v, g
+
+
+def check_and_time_additive(dev, gen):
+    """additive_scores against its plain versions in bf16 ulps: the forward
+    at the decode shapes (T=1) and at teacher forcing (T=40), the backward
+    at teacher forcing (twice: the same bits each time), with device times
+    of each kernel and its plain version and the bound: the larger of the
+    bytes (inputs once, outputs once) over 3.35 TB/s and the B*T*L*H tanh
+    the function needs over the special-function unit's rate (the backward
+    needs the same tanh once). No single PyTorch call computes it, so there
+    is no library time. Totals: the forward per B=64 predict (40 steps over
+    both memories), the backward per train step (both memories)."""
+    from case_rg_tpu_torch.kernels import additive_attention as aa
+    sfu = sfu_per_s()
+    rows = []
+    for t, l in ADD_DECODE + ADD_TRAIN:
+        wq, uh, v, g = additive_inputs(t, l, gen, dev)
+        out = aa.additive_scores(wq, uh, v)
+        ref = aa.additive_scores_plain(wq, uh, v)
+        torch.cuda.synchronize()
+        ulps, err = bf16_ulps(out, ref)
+        check(ulps <= ADD_FWD_ULPS, f"additive_scores {(t, l)}: kernel vs "
+              f"plain {ulps} bf16 ulps > {ADD_FWD_ULPS}")
+        n_tanh = B * t * l * E
+        row = {"T": t, "L": l, "max_ulps": ulps, "max_abs_err": err,
+               "ms": device_ms(lambda: aa.additive_scores(wq, uh, v)),
+               "plain_ms": device_ms(
+                   lambda: aa.additive_scores_plain(wq, uh, v), iters=5),
+               "library_ms": None}
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            nbytes(wq, uh, v, out), n_tanh, sfu)
+        if t > 1:
+            xs = [x.clone().requires_grad_() for x in (wq, uh, v)]
+            y = aa.additive_scores(*xs)
+            grads = [torch.autograd.grad(y, xs, g, retain_graph=True)
+                     for _ in range(2)]
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(*grads)),
+                  f"additive_scores backward {(t, l)}: two runs differ")
+            want = aa.additive_scores_plain_bwd(wq, uh, v, g)
+            read = [bf16_ulps(a, b) for a, b in zip(grads[0], want)]
+            g_ulps = max(u for u, _ in read)
+            check(g_ulps <= ADD_BWD_ULPS, f"additive_scores backward "
+                  f"{(t, l)}: {g_ulps} bf16 ulps > {ADD_BWD_ULPS}")
+            row["bwd"] = {
+                "max_ulps": g_ulps, "max_abs_err": max(x for _, x in read),
+                "ms": device_ms(lambda: aa._launch_bwd(wq, uh, v, g)),
+                "plain_ms": device_ms(
+                    lambda: aa.additive_scores_plain_bwd(wq, uh, v, g),
+                    iters=3),
+                "library_ms": None}
+            row["bwd"]["bound_ms"], row["bwd"]["bound_by"] = bound_ms(
+                nbytes(wq, uh, v, g, wq, uh, v), n_tanh, sfu)
+        rows.append(row)
+    keys = ("ms", "plain_ms", "bound_ms")
+    fwd = {k: T_ANS * sum(r[k] for r in rows if r["T"] == 1) for k in keys}
+    bwd = {k: sum(r["bwd"][k] for r in rows if "bwd" in r) for k in keys}
+    for tot, part in ((fwd, [r for r in rows if r["T"] == 1]),
+                      (bwd, [r["bwd"] for r in rows if "bwd" in r])):
+        tot.update(library_ms=None, max_ulps=max(x["max_ulps"] for x in part),
+                   max_abs_err=max(x["max_abs_err"] for x in part),
+                   bound_by=max(part, key=lambda x: x["bound_ms"])["bound_by"])
+    fwd["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    return fwd, bwd, rows, sfu
+
+
 # ---- phase 4: CaSE serving ----
 
 def make_batch(rng):
@@ -475,10 +661,12 @@ def serving_model(dev):
 
 
 def serve_case(dev, cfg, model):
+    from case_rg_tpu_torch.kernels import additive_attention as aa
+    from case_rg_tpu_torch.kernels import decode_attention as da
     from case_rg_tpu_torch.kernels import decoder_stack as ds
     from case_rg_tpu_torch.kernels import encoder_attention as ea
     from case_rg_tpu_torch.models import multimem
-    from case_rg_tpu_torch.ops import attention
+    from case_rg_tpu_torch.ops import attention, bilinear
     from case_rg_tpu_torch.runtime.inference import make_predict_fn
 
     n_params = sum(p.numel() for p in model.parameters())
@@ -489,15 +677,24 @@ def serve_case(dev, cfg, model):
     predict(make_batch(rng))                    # warm-up (cuBLAS, allocator)
     torch.cuda.synchronize()
 
-    ea.LAUNCHES = ds.LAUNCHES = 0
+    def reset():
+        ea.LAUNCHES = ds.LAUNCHES = da.LAUNCHES = aa.LAUNCHES = 0
+
+    def counts():
+        return {"fused_mha": ea.LAUNCHES, "stack_step": ds.LAUNCHES,
+                "single_query_mha": da.LAUNCHES, "additive_scores": aa.LAUNCHES}
+
+    reset()
     outs, times = serve(predict, batches)
-    launches = {"fused_mha": ea.LAUNCHES, "stack_step": ds.LAUNCHES}
+    launches = counts()
     n = len(batches)
-    check(launches["fused_mha"] == 19 * n,
-          f"fused_mha launched {launches['fused_mha']} times, expected {19 * n}")
-    check(launches["stack_step"] == T_ANS * n,
-          f"stack_step launched {launches['stack_step']} times, expected "
-          f"{T_ANS * n}")
+    # per batch: 19 attention sites; 40 steps, each through the fused
+    # passage stack, 4 layers x 2 attentions of the query-memory stack and
+    # the copy attention over both memories
+    want = {"fused_mha": 19 * n, "stack_step": T_ANS * n,
+            "single_query_mha": 2 * DEC_LAYERS * T_ANS * n,
+            "additive_scores": 2 * T_ANS * n}
+    check(launches == want, f"serving launches {launches}, expected {want}")
     for out in outs:
         a, r = out["answer"], out["rank"]
         check(tuple(a.shape) == (B, T_ANS) and a.dtype == torch.int32,
@@ -506,42 +703,49 @@ def serve_case(dev, cfg, model):
         check(tuple(r.shape) == (B, P) and bool(torch.isfinite(r).all()),
               f"rank {tuple(r.shape)} not finite")
 
-    ea.LAUNCHES = 0
+    reset()
     t0 = time.perf_counter()
     ro = rank_only(batches[0])["rank"]
     torch.cuda.synchronize()
     rank_only_ms = (time.perf_counter() - t0) * 1e3
     ro = ro.cpu()
-    check(ea.LAUNCHES == RANK_ONLY_MHA and tuple(ro.shape) == (B, P)
-          and bool(torch.isfinite(ro).all()),
-          f"rank_only: {ea.LAUNCHES} fused_mha launches, shape "
-          f"{tuple(ro.shape)}")
+    check(counts() == dict(want, fused_mha=RANK_ONLY_MHA, stack_step=0,
+                           single_query_mha=0, additive_scores=0)
+          and tuple(ro.shape) == (B, P) and bool(torch.isfinite(ro).all()),
+          f"rank_only: launches {counts()}, shape {tuple(ro.shape)}")
     ulps, _ = bf16_ulps(ro, outs[0]["rank"])
     check(ulps <= 1, f"rank_only vs predict rank: {ulps} bf16 ulps > 1")
 
-    def serve_swapped(mha, stack):
-        """The batches with the two wrappers replaced by ``mha``/``stack``."""
+    kernels = (ea.fused_mha, ds.stack_step, da.single_query_mha,
+               aa.additive_scores)
+    plains = (ea.fused_mha_plain, ds.stack_step_plain,
+              da.single_query_mha_plain, aa.additive_scores_plain)
+
+    def route(fns):
+        (attention.fused_mha, multimem.stack_step, attention.single_query_mha,
+         bilinear.additive_scores) = fns
+
+    def serve_swapped(*fns):
+        """The batches with the four wrappers replaced by ``fns``."""
         try:
-            attention.fused_mha, multimem.stack_step = mha, stack
+            route(fns)
             return serve(predict, batches)
         finally:
-            attention.fused_mha, multimem.stack_step = ea.fused_mha, \
-                ds.stack_step
+            route(kernels)
 
     # the same batches with each wrapper swapped for its plain version: the
     # same function, rounded at the same points, so only the order of the
     # sums differs
-    ea.LAUNCHES = ds.LAUNCHES = 0
-    plain_outs, plain_times = serve_swapped(ea.fused_mha_plain,
-                                            ds.stack_step_plain)
-    check(ea.LAUNCHES == 0 and ds.LAUNCHES == 0,
+    reset()
+    plain_outs, plain_times = serve_swapped(*plains)
+    check(not any(counts().values()),
           "kernels launched with their plain versions swapped in")
     vs_plain = agreement(outs, plain_outs)
     # the stack kernel alone, and the rounding witness
-    stack_only = agreement(
-        serve_swapped(ea.fused_mha_plain, ds.stack_step)[0], plain_outs)
+    stack_only = agreement(serve_swapped(
+        plains[0], ds.stack_step, *plains[2:])[0], plain_outs)
     exact_vs_plain = agreement(
-        serve_swapped(mha_exact_sums, ds.stack_step_plain)[0], plain_outs)
+        serve_swapped(mha_exact_sums, *plains[1:])[0], plain_outs)
     check(vs_plain["rank_max_ulps"] <= RANK_ULPS,
           f"rank, kernels vs plain versions: {vs_plain['rank_max_ulps']} bf16 "
           f"ulps > {RANK_ULPS}")
@@ -554,18 +758,22 @@ def serve_case(dev, cfg, model):
               f"{key}: kernels vs plain versions {vs_plain[key]}, exact sums "
               f"vs plain versions {exact_vs_plain[key]}")
 
-    # the same batches with the kernels routed off: dense attention and the
-    # per-layer decode chain (another rounding of the same function)
+    # the same batches with the kernels routed off: dense attention, the
+    # per-layer decode chain, the dense single-query attention and copy
+    # scores (another rounding of the same function)
+    switches = (attention.set_fused_attention, multimem.set_fused_stack,
+                attention.set_single_query_attention,
+                bilinear.set_additive_kernel)
     try:
-        attention.set_fused_attention(False)
-        multimem.set_fused_stack(False)
-        ea.LAUNCHES = ds.LAUNCHES = 0
+        for switch in switches:
+            switch(False)
+        reset()
         off_outs, off_times = serve(predict, batches)
-        check(ea.LAUNCHES == 0 and ds.LAUNCHES == 0,
-              "kernels launched with the routing off")
+        check(not any(counts().values()), "kernels launched with the routing "
+              "off")
     finally:
-        attention.set_fused_attention(None)
-        multimem.set_fused_stack(None)
+        for switch in switches:
+            switch(None)
     vs_off = agreement(outs, off_outs)
     check(vs_off["rank_max_ulps"] <= RANK_ULPS,
           f"rank, kernels vs routed off: {vs_off['rank_max_ulps']} bf16 ulps "
@@ -763,7 +971,9 @@ def serve_continuous(dev, cfg, model, reqs, caps):
     two pool buckets, the one-shot predict of the same requests (answers
     cut at each cap held to agreement, rank within RANK_ULPS), dense mode
     for its time, and a profile."""
+    from case_rg_tpu_torch.kernels import additive_attention as aa
     from case_rg_tpu_torch.kernels import copy_argmax as ca
+    from case_rg_tpu_torch.kernels import decode_attention as da
     from case_rg_tpu_torch.kernels import decoder_stack as ds
     from case_rg_tpu_torch.kernels import encoder_attention as ea
     from case_rg_tpu_torch.runtime.continuous import (
@@ -781,35 +991,22 @@ def serve_continuous(dev, cfg, model, reqs, caps):
     fns = {mode: make_continuous_fns(model, T_ANS, CHUNK_STEPS,
                                      fast_argmax=mode, device=dev)
            for mode in ("pallas", "dense")}
-    items = lambda k: iter([{"i": i} for i in range(k)])
-
-    def timed(drive, k):
-        got = {}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        stats = drive(lambda r, ids, rk: got.__setitem__(
-            r["i"], (ids.copy(), rk.copy())))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        check(stats["served"] == k and sorted(got) == list(range(k)),
-              f"continuous: served {stats['served']} of {k}")
-        stats.update(requests_per_s=k / wall, wall_s=wall,
-                     ms_per_chunk=wall * 1e3 / stats["chunks"])
-        return got, stats
-
     def single(k=n, mode="pallas", **opts):
         return timed(lambda emit: run_continuous(
             items(k), batch_maker(reqs), *fns[mode], batch_size=B,
             refill=REFILL, emit=emit, **opts), k)
 
     single()                                  # warm-up
-    ea.LAUNCHES = ds.LAUNCHES = ca.LAUNCHES = 0
+    ea.LAUNCHES = ds.LAUNCHES = ca.LAUNCHES = da.LAUNCHES = aa.LAUNCHES = 0
     base, stats = single()
     launches = {"fused_mha": ea.LAUNCHES, "stack_step": ds.LAUNCHES,
-                "combine_copy_mass": ca.LAUNCHES}
+                "combine_copy_mass": ca.LAUNCHES,
+                "single_query_mha": da.LAUNCHES, "additive_scores": aa.LAUNCHES}
+    steps = CHUNK_STEPS * stats["chunks"]
     want = {"fused_mha": MHA_PER_ENCODE * (1 + stats["refills"]),
-            "stack_step": CHUNK_STEPS * stats["chunks"],
-            "combine_copy_mass": CHUNK_STEPS * stats["chunks"]}
+            "stack_step": steps, "combine_copy_mass": steps,
+            "single_query_mha": 2 * DEC_LAYERS * steps,
+            "additive_scores": 2 * steps}
     check(launches == want, f"continuous launches {launches}, expected {want}")
     res = {"base": dict(stats, launches=launches)}
     _, res["dense"] = single(mode="dense")
@@ -866,6 +1063,28 @@ def serve_continuous(dev, cfg, model, reqs, caps):
     return res
 
 
+def items(k: int):
+    return iter([{"i": i} for i in range(k)])
+
+
+def timed(drive, k: int):
+    """``drive(emit)`` (a continuous run over requests 0..k-1) on the host
+    clock: ({request: (answer, rank)}, the run's counters with
+    requests/s, wall seconds and ms per chunk)."""
+    got = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = drive(lambda r, ids, rk: got.__setitem__(
+        r["i"], (ids.copy(), rk.copy())))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(stats["served"] == k and sorted(got) == list(range(k)),
+          f"continuous: served {stats['served']} of {k}")
+    stats.update(requests_per_s=k / wall, wall_s=wall,
+                 ms_per_chunk=wall * 1e3 / stats["chunks"])
+    return got, stats
+
+
 def answer_agreement(got, ref, caps, eos):
     """Shares of answer tokens (each request's first ``cap`` positions, the
     reference cut at the cap and its first EOS) and of first tokens that
@@ -882,6 +1101,159 @@ def answer_agreement(got, ref, caps, eos):
     return {"token_agreement": same / max(total, 1),
             "first_token_agreement": first / max(len(got), 1),
             "requests": len(got)}
+
+
+# ---- phases 9-10: beam search and sampling ----
+
+def decode_counts():
+    from case_rg_tpu_torch.kernels import additive_attention as aa
+    from case_rg_tpu_torch.kernels import decode_attention as da
+    return {"single_query_mha": da.LAUNCHES, "additive_scores": aa.LAUNCHES}
+
+
+def reset_decode_counts():
+    from case_rg_tpu_torch.kernels import additive_attention as aa
+    from case_rg_tpu_torch.kernels import decode_attention as da
+    da.LAUNCHES = aa.LAUNCHES = 0
+
+
+def cut_at_eos(answer: torch.Tensor, eos: int) -> torch.Tensor:
+    """PAD after each row's first EOS (a beam's answer ends there)."""
+    after = (answer == eos).int().cumsum(-1) - (answer == eos).int() > 0
+    return torch.where(after, torch.zeros_like(answer), answer)
+
+
+def serve_decoding(dev, cfg, model, reqs):
+    """Two B=64 batches through make_predict_fn with beam search of width
+    BEAM_WIDTH, with sampling at top_k=1 and with sampling under
+    SAMPLE_CONTROLS (per-row keys from a seed), and through the decoder's
+    beam at width 1; greedy for reference. Host ms per batch and the new
+    kernels' launches per batch (40 steps x (8 + 2), on B or B x width
+    rows). Gates: beam width 1 is greedy cut at its first EOS, token for
+    token; sampling at top_k=1 agrees with greedy as the kernels agree with
+    their plain versions (MIN_TOKEN_AGREEMENT, MIN_FIRST_TOKEN_AGREEMENT;
+    the sampler's bookkeeping ends every row with EOS); real sampling
+    repeats bit for bit with the same keys."""
+    from case_rg_tpu_torch.device import batch_to_device
+    from case_rg_tpu_torch.runtime.inference import make_predict_fn
+    rng = np.random.RandomState(7)
+    batches = [dict(take(reqs, slice(i * B, (i + 1) * B)),
+                    sample_key=rng.randint(0, 2 ** 32, (B, 2), dtype=np.int64))
+               for i in range(2)]
+
+    def beam1(bt):
+        with torch.inference_mode():
+            bt = batch_to_device(bt, dev)
+            st = model.stages(bt)
+            mem, keeps, weights, src, feat = model._decoder_inputs(bt, st)
+            return {"answer": model.decoder.beam(mem, keeps, weights, src,
+                                                 T_ANS, 1, feature=feat),
+                    "rank": st["passage_score"]}
+
+    fns = {"greedy": make_predict_fn(model, cfg, T_ANS, device=dev),
+           "beam": make_predict_fn(model, cfg, T_ANS, beam_width=BEAM_WIDTH,
+                                   device=dev),
+           "beam1": beam1,
+           "sample_top_k_1": make_predict_fn(model, cfg, T_ANS,
+                                             decoding="sample", top_k=1,
+                                             device=dev),
+           "sample": make_predict_fn(model, cfg, T_ANS, decoding="sample",
+                                     device=dev, **SAMPLE_CONTROLS)}
+    res, outs = {}, {}
+    per_batch = {"single_query_mha": 2 * DEC_LAYERS * T_ANS,
+                 "additive_scores": 2 * T_ANS}
+    for name, fn in fns.items():
+        fn(batches[0])                               # warm-up
+        reset_decode_counts()
+        outs[name], times = serve(fn, batches)
+        launches = decode_counts()
+        want = {k: len(batches) * c for k, c in per_batch.items()}
+        check(launches == want, f"{name}: launches {launches}, expected "
+              f"{want}")
+        for out in outs[name]:
+            a = out["answer"]
+            check(tuple(a.shape) == (B, T_ANS) and bool(((a >= 0) & (a < V))
+                                                        .all()),
+                  f"{name}: answer {tuple(a.shape)} out of the vocab")
+        res[name] = {"ms_per_batch": times,
+                     "launches_per_batch": {k: c // len(batches)
+                                            for k, c in launches.items()}}
+    for g, b1 in zip(outs["greedy"], outs["beam1"]):
+        check(torch.equal(cut_at_eos(g["answer"], cfg.eos_id), b1["answer"]),
+              "beam width 1 differs from greedy cut at its first EOS")
+    res["beam1"]["vs_greedy"] = "identical"
+    got = agreement(outs["sample_top_k_1"], outs["greedy"])
+    check(got["token_agreement"] >= MIN_TOKEN_AGREEMENT
+          and got["first_token_agreement"] >= MIN_FIRST_TOKEN_AGREEMENT,
+          f"sampling at top_k=1 vs greedy: {got}")
+    res["sample_top_k_1"]["vs_greedy"] = got
+    again, _ = serve(fns["sample"], batches)
+    check(all(torch.equal(a["answer"], b["answer"])
+              for a, b in zip(again, outs["sample"])),
+          "sampling: a repeat with the same keys differs")
+    res["sample"]["vs_greedy"] = agreement(outs["sample"], outs["greedy"])
+    res["beam"]["vs_greedy"] = agreement(outs["beam"], outs["greedy"])
+    for name in ("beam", "sample"):
+        res[name]["profile"] = profile_device(fns[name], batches[:1])
+    return res
+
+
+def serve_continuous_sampled(dev, cfg, model, reqs, caps):
+    """N_REQUESTS requests through run_continuous with decoding="sample"
+    under SAMPLE_CONTROLS (batch 64, refill 16, chunks of 8; a key per
+    request from a seed), launch counters set to 0 just before the base run
+    and read just after; a repeat gives the same answers bit for bit; the
+    one-shot sampled predict with the same keys agrees at the greedy gates
+    (MIN_TOKEN_AGREEMENT, MIN_FIRST_TOKEN_AGREEMENT: a row's last step
+    is EOS in both, at its cap here, at 40 there)."""
+    from case_rg_tpu_torch.kernels import decoder_stack as ds
+    from case_rg_tpu_torch.runtime.continuous import (make_continuous_fns,
+                                                      run_continuous)
+    from case_rg_tpu_torch.runtime.inference import make_predict_fn
+    n = len(caps)
+    keys = np.random.RandomState(11).randint(0, 2 ** 32, (n, 2),
+                                             dtype=np.int64)
+
+    def make_batch(its, bs):
+        idx = [r["i"] for r in its]
+        idx += [idx[-1]] * (bs - len(idx))
+        return dict(take(reqs, idx), response_cap=caps[idx],
+                    sample_key=keys[idx])
+
+    fns = make_continuous_fns(model, T_ANS, CHUNK_STEPS, decoding="sample",
+                              device=dev, **SAMPLE_CONTROLS)
+    run = lambda: timed(lambda emit: run_continuous(
+        items(n), make_batch, *fns, batch_size=B, refill=REFILL, emit=emit),
+        n)
+    reset_decode_counts()
+    ds.LAUNCHES = 0
+    base, stats = run()
+    launches = dict(decode_counts(), stack_step=ds.LAUNCHES)
+    steps = CHUNK_STEPS * stats["chunks"]
+    want = {"single_query_mha": 2 * DEC_LAYERS * steps,
+            "additive_scores": 2 * steps, "stack_step": steps}
+    check(launches == want, f"sampled continuous launches {launches}, "
+          f"expected {want}")
+    res = {"base": dict(stats, launches=launches)}
+    again, res["again"] = run()
+    bad = [i for i in range(n) if not np.array_equal(again[i][0], base[i][0])]
+    check(not bad, f"sampled continuous: {len(bad)} answers differ on a "
+          f"repeat with the same keys (first: request {bad[:1]})")
+    predict = make_predict_fn(model, cfg, T_ANS, decoding="sample",
+                              device=dev, **SAMPLE_CONTROLS)
+    one = {}
+    for s0 in range(0, n, B):
+        out = predict(dict(take(reqs, slice(s0, s0 + B)),
+                           sample_key=keys[s0:s0 + B]))
+        for i, (a, r) in enumerate(zip(out["answer"].cpu().numpy(),
+                                       out["rank"].float().cpu())):
+            one[s0 + i] = (a, r)
+    vs_one = answer_agreement(base, one, caps, cfg.eos_id)
+    check(vs_one["token_agreement"] >= MIN_TOKEN_AGREEMENT
+          and vs_one["first_token_agreement"] >= MIN_FIRST_TOKEN_AGREEMENT,
+          f"sampled continuous vs one-shot sample: {vs_one}")
+    res["vs_one_shot"] = vs_one
+    return res
 
 
 # ---- phase 8: training ----
@@ -1059,6 +1431,22 @@ def plain_mha_rng(q, k, v, keep, seed, num_heads, rate):
     return _PlainTrainMHA.apply(q, k, v, keep, mask, num_heads, rate)
 
 
+class _PlainAdditive(torch.autograd.Function):
+    """additive_scores with its plain versions as forward and backward
+    (same rounding points), for the swapped-in runs."""
+
+    @staticmethod
+    def forward(ctx, wq, uh, v):
+        from case_rg_tpu_torch.kernels import additive_attention as aa
+        ctx.save_for_backward(wq, uh, v)
+        return aa.additive_scores_plain(wq, uh, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        from case_rg_tpu_torch.kernels import additive_attention as aa
+        return aa.additive_scores_plain_bwd(*ctx.saved_tensors, g)
+
+
 def make_train_batch(rng):
     """A served batch plus what training reads: a response of variable
     length and the passage and token labels."""
@@ -1076,9 +1464,10 @@ def make_train_batch(rng):
 
 def train_case(dev):
     from case_rg_tpu_torch.config import ModelConfig, TrainConfig
+    from case_rg_tpu_torch.kernels import additive_attention as aa
     from case_rg_tpu_torch.kernels import train_attention as ta
     from case_rg_tpu_torch.models import create_model, perturb_affine
-    from case_rg_tpu_torch.ops import attention
+    from case_rg_tpu_torch.ops import attention, bilinear
     from case_rg_tpu_torch.train.trainer import Trainer
 
     cfg = ModelConfig(name="case", vocab_size=V, embedding_size=E,
@@ -1103,11 +1492,15 @@ def train_case(dev):
 
     def routed(variant, plain):
         """Route the training sites to ``variant``'s kernels, or to their
-        plain versions (same dropout draws from the generator)."""
+        plain versions (same dropout draws from the generator); the copy
+        attention's scores to additive_scores' kernels or to their plain
+        versions."""
         attention.set_fused_train_attn_rng(VARIANTS[variant])
         attention.fused_train_mha = plain_mha if plain else ta.fused_train_mha
         attention.fused_train_mha_rng = (plain_mha_rng if plain
                                          else ta.fused_train_mha_rng)
+        bilinear.additive_scores = (_PlainAdditive.apply if plain
+                                    else aa.additive_scores)
 
     out = {}
     try:
@@ -1133,6 +1526,7 @@ def train_case(dev):
                 st, gen = fresh()
                 torch.cuda.synchronize()
                 ta.LAUNCHES_FWD[variant] = ta.LAUNCHES_BWD[variant] = 0
+                aa.LAUNCHES = aa.LAUNCHES_BWD = 0
                 losses, norms, times = [], [], []
                 for step in range(TRAIN_STEPS):
                     t0 = time.perf_counter()
@@ -1142,6 +1536,7 @@ def train_case(dev):
                     losses.append(o["total"].item())
                     norms.append(o["grad_norm"].item())
                 launches = (ta.LAUNCHES_FWD[variant], ta.LAUNCHES_BWD[variant])
+                add_launches = (aa.LAUNCHES, aa.LAUNCHES_BWD)
                 check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
                       f"train {variant} {route}: losses {losses}, gradient "
                       f"norms {norms}")
@@ -1151,9 +1546,16 @@ def train_case(dev):
                     (TRAIN_SITES_PER_STEP * TRAIN_STEPS,) * 2
                 check(launches == want, f"train {variant} {route}: launches "
                       f"{launches}, expected {want}")
+                # the copy attention over both memories, forward and
+                # backward, every step
+                want = (0, 0) if route == "plain" else (2 * TRAIN_STEPS,) * 2
+                check(add_launches == want, f"train {variant} {route}: "
+                      f"additive_scores launches {add_launches}, expected "
+                      f"{want}")
                 res[route] = {"losses": losses, "grad_norms": norms,
                               "ms_per_step": times[TRAIN_WARMUP:],
-                              "launches": launches}
+                              "launches": launches,
+                              "additive_launches": add_launches}
             out[variant] = res
         routed("rng", False)
         st, gen = fresh()
@@ -1194,6 +1596,11 @@ def main() -> int:
     print("fused_mha sites: " + json.dumps(mha_rows), flush=True)
     stack = check_and_time_stack(dev)
     print("stack_step: " + json.dumps(stack), flush=True)
+    sq, sq_rows = check_and_time_single_query(dev, gen)
+    print("single_query_mha: " + json.dumps(sq_rows), flush=True)
+    add_fwd, add_bwd, add_rows, sfu = check_and_time_additive(dev, gen)
+    print(f"additive_scores (tanh bound at {sfu:.4g}/s): "
+          + json.dumps(add_rows), flush=True)
     cfg, model = serving_model(dev)
     serve = serve_case(dev, cfg, model)
     print("case serving: " + json.dumps(serve), flush=True)
@@ -1204,6 +1611,10 @@ def main() -> int:
     print("argmax modes: " + json.dumps(modes), flush=True)
     cont = serve_continuous(dev, cfg, model, reqs, caps)
     print("continuous serving: " + json.dumps(cont), flush=True)
+    decoding = serve_decoding(dev, cfg, model, reqs)
+    print("beam and sampling: " + json.dumps(decoding), flush=True)
+    sampled = serve_continuous_sampled(dev, cfg, model, reqs, caps)
+    print("sampled continuous serving: " + json.dumps(sampled), flush=True)
     tmha, tmha_rows = check_and_time_train_mha(dev, gen)
     print("train attention sites: " + json.dumps(tmha_rows), flush=True)
     print("train attention probe: " + json.dumps(probe_rng_mask(dev)),
@@ -1252,6 +1663,25 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in combine),
         "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
+    kernels.append({
+        "name": "single_query_mha", "route": "cuda",
+        "source": "case_rg_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "case_rg_tpu/kernels/decode_attention.py:94",
+        "launches": serve["launches"]["single_query_mha"],
+        **{k: sq[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms")}})
+    for name, t, launches, line in (
+            ("additive_scores", add_fwd,
+             serve["launches"]["additive_scores"], 83),
+            ("additive_scores_bwd", add_bwd,
+             train["rng"]["kernels"]["additive_launches"][1], 95)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "case_rg_tpu_torch/csrc/additive_attention.cu",
+            "replaces": f"case_rg_tpu/kernels/additive_attention.py:{line}",
+            "launches": launches,
+            **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")}})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -146,6 +146,10 @@ def test_port_imports_nothing_of_jax():
     files = sorted((ROOT / "case_rg_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    scanned = {str(f.relative_to(ROOT)) for f in files}
+    for mod in ("kernels/decode_attention.py", "kernels/additive_attention.py",
+                "decode/loops.py"):
+        assert f"case_rg_tpu_torch/{mod}" in scanned, mod
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imports(f) if name in _FORBIDDEN]
     assert not bad, bad

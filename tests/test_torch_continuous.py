@@ -400,9 +400,10 @@ def test_run_continuous_multi_two_buckets(toy, async_harvest):
 
 def test_entry_points_refuse_the_cpu_unless_asked(toy, monkeypatch):
     port, cfg = toy["port"], toy["cfg"]
-    with pytest.raises(ValueError, match="not ported yet"):
-        make_continuous_fns(port, MAX_LEN, 3, decoding="sample", device="cpu")
-    with pytest.raises(ValueError, match="not ported yet"), \
+    with pytest.raises(ValueError, match="unknown decoding"):
+        make_continuous_fns(port, MAX_LEN, 3, decoding="beam", device="cpu")
+    # sampled chunks need the rows' keys (tests/test_torch_decoding.py)
+    with pytest.raises(ValueError, match="row_keys"), \
             torch.inference_mode():
         st, _ = port.decode_init(batch_to_device(
             take(toy["parity"], [0]), torch.device("cpu")), max_len=MAX_LEN)

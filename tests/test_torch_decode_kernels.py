@@ -1,0 +1,269 @@
+"""The port's decode-attention and additive-attention kernels
+(case_rg_tpu_torch/kernels/decode_attention.py, additive_attention.py).
+
+On the CPU the wrappers run their plain PyTorch versions; these are held
+against the JAX package in f32 at 1e-5 (the gradients at 1e-5 absolute
+and relative): ``single_query_mha_plain`` against
+``single_query_mha_xla`` and the Pallas kernel in interpret mode (L = 600
+crosses its 512-key tile; one row has no valid key), and
+``additive_scores`` forward and gradients against the JAX
+``additive_scores`` in interpret mode and ``jax.grad`` through its custom
+VJP (L = 130 crosses its 128-key tile). A strided view of a packed K|V
+cache gives what contiguous K and V give, and on the CPU both routing
+switches run the plain versions.
+
+Tests marked ``cuda`` hold each CUDA kernel against its plain version on
+the card, in bf16 ulps per element (the limits chip_smoke.py states), and
+skip without one.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from case_rg_tpu_torch.kernels import additive_attention as taa
+from case_rg_tpu_torch.kernels import decode_attention as tda
+from case_rg_tpu_torch.ops import attention, bilinear
+from case_rg_tpu_torch.ops.attention import MultiHeadAttention
+from case_rg_tpu_torch.ops.bilinear import BilinearAttention
+from tests.test_torch_kernels import (_bf16_close, cuda,  # noqa: F401
+                                      one_torch_thread)
+
+torch.set_float32_matmul_precision("highest")
+# per element, in bf16 ulps at the larger of the element's magnitude and its
+# row's RMS: the limits chip_smoke.py holds the kernels to
+SQ_ULPS = 2
+ADD_FWD_ULPS = 2
+ADD_BWD_ULPS = 4
+
+
+@pytest.fixture(scope="module")
+def jx():
+    import types
+    import jax
+    import jax.numpy as jnp
+    from case_rg_tpu.kernels import additive_attention, decode_attention
+    return types.SimpleNamespace(jax=jax, jnp=jnp, aa=additive_attention,
+                                 da=decode_attention)
+
+
+def _sq_inputs(b, l, e, seed):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(b, 1, e).astype(np.float32)
+    k, v = (rng.randn(b, l, e).astype(np.float32) for _ in range(2))
+    keep = rng.rand(b, l) > 0.3
+    keep[1] = False                               # a row with no valid key
+    return q, k, v, keep
+
+
+@pytest.mark.parametrize("l", [5, 37, 600])
+def test_single_query_mha_plain_matches_jax(jx, l):
+    b, e, h = 3, 32, 4
+    q, k, v, keep = _sq_inputs(b, l, e, seed=l)
+    before = tda.LAUNCHES
+    got = tda.single_query_mha(*map(torch.from_numpy, (q, k, v, keep)), h)
+    assert tda.LAUNCHES == before
+    want_xla = jx.da.single_query_mha_xla(*map(jx.jnp.asarray,
+                                               (q, k, v, keep)), h)
+    want_pallas = jx.da.single_query_mha(*map(jx.jnp.asarray,
+                                              (q, k, v, keep)), h, True)
+    for want in (want_xla, want_pallas):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-5)
+    assert (got[1] == 0).all()
+
+
+def test_single_query_mha_reads_a_packed_cache_in_place():
+    """K and V as the two halves of a packed [B, T, 2E] cache (row stride
+    2E) give what contiguous copies give, in the wrapper and through the
+    decode attention."""
+    b, t, e, h = 3, 9, 32, 4
+    rng = np.random.RandomState(4)
+    cache = torch.from_numpy(rng.randn(b, t, 2 * e).astype(np.float32))
+    q = torch.from_numpy(rng.randn(b, 1, e).astype(np.float32))
+    keep = torch.from_numpy(rng.rand(b, t) > 0.4)
+    k, v = cache[..., :e], cache[..., e:]
+    assert k.stride() == (t * 2 * e, 2 * e, 1)
+    got = tda.single_query_mha(q, k, v, keep, h)
+    want = tda.single_query_mha(q, k.contiguous(), v.contiguous(), keep, h)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    mha = MultiHeadAttention(e, h)
+    torch.nn.init.normal_(mha.in_proj_weight, std=0.2)
+    with torch.no_grad():
+        a, _ = mha.attend_with_kv_merged(q, k, v, key_keep=keep)
+        c, _ = mha.attend_with_kv_merged(q, k.contiguous(), v.contiguous(),
+                                         key_keep=keep)
+    np.testing.assert_array_equal(a.numpy(), c.numpy())
+
+
+def _add_inputs(b, t, l, h, seed):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(b, t, h).astype(np.float32),
+            rng.randn(b, l, h).astype(np.float32),
+            rng.randn(h).astype(np.float32),
+            rng.randn(b, t, l).astype(np.float32))
+
+
+def test_additive_scores_plain_and_grads_match_jax(jx):
+    """Forward against the interpret-mode Pallas kernel and _scores_xla;
+    the gradients of sum(s * g) against jax.grad through the custom VJP."""
+    jnp = jx.jnp
+    wq, uh, v, g = _add_inputs(2, 3, 130, 16, seed=0)
+    xs = [torch.from_numpy(a).requires_grad_() for a in (wq, uh, v)]
+    before = (taa.LAUNCHES, taa.LAUNCHES_BWD)
+    out = taa.additive_scores(*xs)
+    grads = torch.autograd.grad(out, xs, torch.from_numpy(g))
+    assert (taa.LAUNCHES, taa.LAUNCHES_BWD) == before
+    ja = [jnp.asarray(a) for a in (wq, uh, v)]
+    for want in (jx.aa.additive_scores(*ja, True), jx.aa._scores_xla(*ja)):
+        np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
+                                   rtol=0, atol=1e-5)
+    want_g = jx.jax.grad(
+        lambda a, b_, c: jnp.sum(jx.aa.additive_scores(a, b_, c, True)
+                                 * jnp.asarray(g)), argnums=(0, 1, 2))(*ja)
+    # dv sums B*T*L = 780 terms of magnitude ~40: held at 1e-5 relative too
+    for got, want in zip(grads, want_g):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_routing_switches_run_the_plain_versions_on_the_cpu():
+    """Forced on, both routes run their plain versions on CPU tensors (no
+    launch) and agree with the dense paths; auto keeps the CPU dense."""
+    torch.manual_seed(0)
+    mha = MultiHeadAttention(32, 4)
+    torch.nn.init.normal_(mha.in_proj_weight, std=0.2)
+    att = BilinearAttention(32, 32, 16)
+    q, kv = torch.randn(3, 1, 32), torch.randn(3, 7, 32)
+    keep = torch.rand(3, 7) > 0.3
+    uh = att.key_proj(kv)
+    assert not attention._single_query_ok(q)
+    assert not bilinear._additive_kernel_ok(q.new_zeros(3, 1, 16), uh)
+    outs = {}
+    before = (tda.LAUNCHES, taa.LAUNCHES)
+    try:
+        for on in (True, False):
+            attention.set_single_query_attention(on)
+            bilinear.set_additive_kernel(on)
+            assert attention._single_query_ok(q) == on
+            with torch.no_grad():
+                outs[on] = (mha.attend_with_kv_merged(q, kv, kv,
+                                                      key_keep=keep)[0],
+                            att.matching_from_proj(q, uh))
+    finally:
+        attention.set_single_query_attention(None)
+        bilinear.set_additive_kernel(None)
+    assert (tda.LAUNCHES, taa.LAUNCHES) == before
+    for a, b_ in zip(outs[True], outs[False]):
+        np.testing.assert_allclose(a.numpy(), b_.numpy(), rtol=0, atol=1e-6)
+
+
+def test_decode_paths_hand_the_kernel_views_it_reads_in_place(monkeypatch):
+    """With the route forced on, every single-query attention of a greedy,
+    beam and sampled CaSE decode passes the kernel's layout check (the
+    query third of a packed QKV projection, the halves of the packed K|V
+    cache), so on the card no call copies or raises."""
+    from case_rg_tpu_torch.config import ModelConfig
+    from case_rg_tpu_torch.models import create_model
+    from case_rg_tpu_torch.runtime.inference import make_predict_fn
+    cfg = ModelConfig(name="case", vocab_size=64, embedding_size=16,
+                      hidden_size=16, num_heads=2, enc_layers=1,
+                      dec_layers=2, max_dec_len=5)
+    model = create_model("case", cfg, device="cpu")
+    rng = np.random.RandomState(0)
+    batch = {"query": rng.randint(4, 64, (3, 1, 6)).astype(np.int32),
+             "passage": rng.randint(4, 64, (3, 2, 7)).astype(np.int32)}
+    seen = []
+
+    def spy(q, k, v, keep, num_heads):
+        tda.check_layout(q, k, v, keep)
+        seen.append(k.is_contiguous())
+        return tda.single_query_mha_plain(q, k, v, keep, num_heads)
+
+    monkeypatch.setattr(attention, "single_query_mha", spy)
+    try:
+        attention.set_single_query_attention(True)
+        for kw in ({}, {"beam_width": 2}, {"decoding": "sample"}):
+            make_predict_fn(model, cfg, 5, device="cpu", **kw)(batch)
+    finally:
+        attention.set_single_query_attention(None)
+    # 3 decodes x 5 steps x 2 stacks x 2 layers x (self + cross)
+    assert len(seen) == 120
+    assert not all(seen), "no strided cache view reached the kernel"
+
+
+def test_plain_decode_attention_moves_nothing_from_the_host():
+    """The dense path of the decode attention copies no host tensor to the
+    device: a blocking copy would synchronise the stream in every decode
+    step (the scale was once a 0-dim CPU tensor moved per call). Run on
+    meta tensors, every copy between devices shows in the dispatch log."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Copies(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            ins = [a for a in args if isinstance(a, torch.Tensor)]
+            if isinstance(out, torch.Tensor) and any(
+                    a.device != out.device for a in ins):
+                self.seen.append(str(func))
+            return out
+
+    q = torch.empty(3, 1, 32, device="meta", dtype=torch.bfloat16)
+    kv = torch.empty(3, 9, 32, device="meta", dtype=torch.bfloat16)
+    keep = torch.empty(3, 9, device="meta", dtype=torch.bool)
+    with Copies() as mode:
+        tda.single_query_mha_plain(q, kv, kv, keep, 4)
+    assert not mode.seen, mode.seen
+
+
+# ---- on the card: each CUDA kernel against its plain version (bf16) ----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,e,h,packed", [
+    (64, 1000, 256, 8, False), (64, 60, 256, 8, False),
+    (64, 40, 256, 8, True), (256, 60, 256, 8, False), (5, 600, 64, 2, True),
+])
+def test_single_query_mha_kernel_matches_plain(cuda, b, l, e, h, packed):
+    q, k, v, keep = _sq_inputs(b, l, e, seed=l)
+    q = torch.from_numpy(q).to(cuda).to(torch.bfloat16)
+    if packed:                 # q: the first third of a packed projection
+        q = torch.cat([q, torch.zeros_like(q), torch.zeros_like(q)],
+                      -1)[..., :e]
+        cache = torch.from_numpy(np.concatenate([k, v], -1)).to(cuda)
+        cache = cache.to(torch.bfloat16)
+        k, v = cache[..., :e], cache[..., e:]
+    else:
+        k, v = (torch.from_numpy(x).to(cuda).to(torch.bfloat16)
+                for x in (k, v))
+    keep = torch.from_numpy(keep).to(cuda)
+    before = tda.LAUNCHES
+    out = tda.single_query_mha(q, k, v, keep, h)
+    torch.cuda.synchronize()
+    assert tda.LAUNCHES == before + 1
+    ref = tda.single_query_mha_plain(q, k, v, keep, h)
+    _bf16_close(out, ref, ulps=SQ_ULPS)
+    assert (out[1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,l,h", [
+    (64, 1, 1000, 256), (64, 40, 60, 256), (4, 40, 1000, 256),
+    (3, 5, 37, 16),
+])
+def test_additive_scores_kernels_match_plain(cuda, b, t, l, h):
+    wq, uh, v, g = (torch.from_numpy(a).to(cuda).to(torch.bfloat16)
+                    for a in _add_inputs(b, t, l, h, seed=t))
+    xs = [x.clone().requires_grad_() for x in (wq, uh, v)]
+    out = taa.additive_scores(*xs)
+    grads = torch.autograd.grad(out, xs, g)
+    torch.cuda.synchronize()
+    _bf16_close(out, taa.additive_scores_plain(wq, uh, v), ADD_FWD_ULPS)
+    for got, want in zip(grads, taa.additive_scores_plain_bwd(wq, uh, v, g)):
+        _bf16_close(got, want, ADD_BWD_ULPS)
+    again = torch.autograd.grad(taa.additive_scores(*xs), xs, g)
+    assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
