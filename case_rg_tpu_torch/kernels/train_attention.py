@@ -15,9 +15,12 @@ Two wrappers, each a ``torch.autograd.Function``:
   TPU kernel's by design.
 
 On a CUDA tensor a wrapper launches the hand-written kernels of
-``csrc/train_attention.cu`` (bf16 only; one forward launch, and a backward
-of two launches: a pass over query rows for dq and the row term, then a
-pass over key tiles for dk and dv) and counts one forward or backward in
+``csrc/train_attention.cu`` (bf16 only) as ``train_mha_plan`` lays them
+out: at most 128 keys, one forward launch and one backward launch per
+(row, head), the scores held whole; more keys (or a backward that does not
+fit shared memory), a forward of two sweeps over key tiles and a backward
+of two launches (a pass over query rows for dq and the row term, then a
+pass over key tiles for dk and dv). It counts one forward or backward in
 ``LAUNCHES_FWD`` / ``LAUNCHES_BWD``, by variant ("mask", "rng"). On a CPU
 tensor it runs the plain versions: ``fused_train_mha_plain`` (the JAX
 package's ``fused_train_mha_xla``) and ``fused_train_mha_plain_bwd`` (the
@@ -27,6 +30,8 @@ recompute of its ``_bwd_kernel``). Anything else raises.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -221,6 +226,93 @@ def fused_train_mha_rng(q, k, v, keep, seed, num_heads: int,
     return _FusedTrainMHA.apply(q, k, v, keep, seed, num_heads, rate, True)
 
 
+# ---- the launch plan ----
+
+_KINDS = ("fwd_short", "fwd_long", "bwd_short", "bwd_rows", "bwd_keys")
+_SHORT_KEYS = 128     # keys a short-path block holds
+_TILE = 64            # keys per tile of the long path
+_MAX_WARPS = 8
+_NBUF = 2             # key tiles in flight on the long path (1 or 2)
+
+
+class Launch(NamedTuple):
+    """One kernel launch: grid (R, H, z), ``warps`` warps a block (query
+    warps times ``wk`` key warps), ``kt`` keys a block holds (short kinds
+    and bwd_keys), ``nbuf`` key-tile buffers (long kinds), ``smem`` bytes of
+    shared memory a block (the C launcher counts them itself, smem_need)."""
+    kind: str
+    warps: int
+    wk: int
+    kt: int
+    z: int
+    nbuf: int
+    smem: int
+
+
+def _smem(kind, lq, lk, d, kt, wk, nbuf, rng) -> int:
+    """Shared-memory bytes of one block (csrc/train_attention.cu,
+    smem_need: the same layouts)."""
+    mpad, ld = -(-lq // 16) * 16, d + 8
+    nall = -(-lk // _TILE) * _TILE
+    mask_tile = 0 if rng else mpad * (kt + 16)
+    mask_tiles = 0 if rng else nbuf * mpad * (_TILE + 16)
+    kv = nbuf * 2 * _TILE * ld * 2
+    tiles = max(kv, (wk - 1) * (mpad // 16) * 16 * d * 4)
+    if kind == "fwd_short":     # at d = 160 the mask goes where K was
+        return 2 * (mpad + 2 * kt) * ld + kt + (0 if d == 160 else mask_tile)
+    if kind == "fwd_long":
+        return 2 * mpad * ld + nall + 8 * wk * mpad + mask_tiles + tiles
+    if kind in ("bwd_short", "bwd_keys"):
+        return (2 * (2 * mpad + 2 * kt) * ld + 4 * mpad * (kt + 8) + kt
+                + mask_tile)
+    return 4 * mpad * ld + nall + mpad * nall // 8 + mask_tiles + kv
+
+
+def _long(kind, lq, lk, d, rng) -> Launch:
+    """A long-path sweep kernel, _NBUF key tiles in flight (one where shared
+    memory is short: bwd_rows at d = 160 with thousands of keys); the
+    forward with key warps beside the query warps at Lq <= 64."""
+    wq = -(-lq // 16)
+    wk = min(4, _MAX_WARPS // wq) if kind == "fwd_long" and lq <= 64 else 1
+    for nbuf in range(_NBUF, 0, -1):
+        smem = _smem(kind, lq, lk, d, _TILE, wk, nbuf, rng)
+        if smem <= _SMEM_LIMIT:
+            return Launch(kind, wq * wk, wk, _TILE, 1, nbuf, smem)
+    raise ValueError(f"fused_train_mha: no launch of {kind} fits Lq={lq}, "
+                     f"Lk={lk}, d={d}")
+
+
+@functools.lru_cache(maxsize=None)
+def train_mha_plan(lq: int, lk: int, d: int, rng: bool = True) -> dict:
+    """The launches of the training attention at (Lq, Lk, head width d), for
+    the in-kernel RNG (``rng``) or the caller's mask: ``{"fwd": [Launch],
+    "bwd": [Launch, ...], "path": {"fwd": "short" | "long", "bwd": ...}}``.
+    At most 128 keys the short path holds a (row, head)'s keys whole: one
+    forward and one backward launch. More keys, or a short backward that
+    does not fit a block's shared memory (d = 160 at 128 x 128), take the
+    long path: tiles of 64 keys, and a backward of two launches. Cached:
+    callers read the plan and do not change it."""
+    wq = -(-lq // 16)
+    plan = {"fwd": None, "bwd": None, "path": {}}
+    if lk <= _SHORT_KEYS:
+        kt = next(n for n in (64, 112, _SHORT_KEYS) if lk <= n)
+        plan["fwd"] = [Launch("fwd_short", wq, 1, kt, 1, 1,
+                              _smem("fwd_short", lq, lk, d, kt, 1, 1, rng))]
+        smem = _smem("bwd_short", lq, lk, d, kt, 1, 1, rng)
+        if smem <= _SMEM_LIMIT:
+            plan["bwd"] = [Launch("bwd_short", wq, 1, kt, 1, 1, smem)]
+    if plan["fwd"] is None:
+        plan["fwd"] = [_long("fwd_long", lq, lk, d, rng)]
+    if plan["bwd"] is None:
+        plan["bwd"] = [_long("bwd_rows", lq, lk, d, rng),
+                       Launch("bwd_keys", wq, 1, _TILE, -(-lk // _TILE), 1,
+                              _smem("bwd_keys", lq, lk, d, _TILE, 1, 1, rng))]
+    for way in ("fwd", "bwd"):
+        plan["path"][way] = ("short" if plan[way][0].kind.endswith("short")
+                             else "long")
+    return plan
+
+
 # ---- the CUDA launches ----
 
 def _check(q, k, v, keep, src, num_heads, rng):
@@ -251,11 +343,6 @@ def _check(q, k, v, keep, src, num_heads, rng):
         raise ValueError(f"fused_train_mha: the kernel takes head widths 32 "
                          f"or 160, at most 128 queries and 4096 keys; got "
                          f"E={e}, H={num_heads}, Lq={lq}, Lk={lk}")
-    for which in range(3):
-        smem = lib.train_mha_smem_bytes(which, lq, lk, d)
-        if smem > _SMEM_LIMIT:
-            raise ValueError(f"fused_train_mha: Lq={lq}, d={d} needs {smem} "
-                             "bytes of shared memory, more than a block has")
     return lib, r, lq, lk, e, d
 
 
@@ -270,37 +357,43 @@ def _ptr(x):
     return x.data_ptr() if x is not None else None
 
 
+def _launch(lib, plan, what, q, k, v, keep, src, do, stats, rowterm, out,
+            dk, dv, num_heads, rate, rng):
+    r, lq, e = q.shape
+    lk = k.shape[1]
+    qscale, dqscale, inv_keep, thresh = _consts(e // num_heads, rate)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    for ln in plan:
+        rc = lib.train_mha_launch(
+            _KINDS.index(ln.kind), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            _ptr(keep), None if rng else src.data_ptr(),
+            src.data_ptr() if rng else None, _ptr(do), _ptr(stats),
+            _ptr(rowterm), out.data_ptr(), _ptr(dk), _ptr(dv), r, lq, lk, e,
+            num_heads, qscale, dqscale, inv_keep, thresh, int(rng), ln.warps,
+            ln.wk, ln.kt, ln.z, ln.nbuf, stream)
+        _build.check(rc, f"fused_train_mha {what} ({ln.kind})")
+
+
 def _launch_fwd(q, k, v, keep, src, num_heads, rate, rng):
     lib, r, lq, lk, e, d = _check(q, k, v, keep, src, num_heads, rng)
-    qscale, _, inv_keep, thresh = _consts(d, rate)
     out = torch.empty_like(q)
     stats = torch.empty(r, num_heads, lq, 2, dtype=torch.float32,
                         device=q.device)
-    rc = lib.train_mha_fwd_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(keep),
-        None if rng else src.data_ptr(), src.data_ptr() if rng else None,
-        out.data_ptr(), stats.data_ptr(), r, lq, lk, e, num_heads, qscale,
-        inv_keep, thresh, int(rng),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(rc, "fused_train_mha forward")
+    _launch(lib, train_mha_plan(lq, lk, d, rng)["fwd"], "forward", q, k, v,
+            keep, src, None, stats, None, out, None, None, num_heads, rate,
+            rng)
     LAUNCHES_FWD["rng" if rng else "mask"] += 1
     return out, stats
 
 
 def _launch_bwd(q, k, v, keep, src, do, stats, num_heads, rate, rng):
     lib, r, lq, lk, e, d = _check(q, k, v, keep, src, num_heads, rng)
-    qscale, dqscale, inv_keep, thresh = _consts(d, rate)
+    plan = train_mha_plan(lq, lk, d, rng)["bwd"]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    rowterm = torch.empty(r, num_heads, lq, dtype=torch.float32,
-                          device=q.device)
-    rc = lib.train_mha_bwd_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(keep),
-        None if rng else src.data_ptr(), src.data_ptr() if rng else None,
-        do.data_ptr(), stats.data_ptr(), rowterm.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), r, lq, lk, e, num_heads, qscale,
-        dqscale, inv_keep, thresh, int(rng),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(rc, "fused_train_mha backward")
+    rowterm = (torch.empty(r, num_heads, lq, dtype=torch.float32,
+                           device=q.device) if len(plan) > 1 else None)
+    _launch(lib, plan, "backward", q, k, v, keep, src, do, stats, rowterm,
+            dq, dk, dv, num_heads, rate, rng)
     LAUNCHES_BWD["rng" if rng else "mask"] += 1
     return dq, dk, dv
 
@@ -310,16 +403,12 @@ def _lib():
     if not getattr(lib, "_argtypes_set", False):
         lib.train_mha_supports.argtypes = [ctypes.c_int] * 3
         lib.train_mha_supports.restype = ctypes.c_int
-        lib.train_mha_smem_bytes.argtypes = [ctypes.c_int] * 4
-        lib.train_mha_smem_bytes.restype = ctypes.c_int
-        tail = [ctypes.c_uint64, ctypes.c_int, ctypes.c_void_p]
-        lib.train_mha_fwd_bf16.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
-            + [ctypes.c_float] * 2 + tail)
-        lib.train_mha_fwd_bf16.restype = ctypes.c_int
-        lib.train_mha_bwd_bf16.argtypes = (
-            [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
-            + [ctypes.c_float] * 3 + tail)
-        lib.train_mha_bwd_bf16.restype = ctypes.c_int
+        lib.train_mha_smem_need.argtypes = [ctypes.c_int] * 8
+        lib.train_mha_smem_need.restype = ctypes.c_int
+        lib.train_mha_launch.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+            + [ctypes.c_float] * 3 + [ctypes.c_uint64] + [ctypes.c_int] * 6
+            + [ctypes.c_void_p])
+        lib.train_mha_launch.restype = ctypes.c_int
         lib._argtypes_set = True
     return lib

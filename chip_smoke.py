@@ -64,9 +64,13 @@ In order it
      the train step of case_rg_tpu_torch.train.trainer. First it holds the
      four training-attention kernels (forward and backward of
      fused_train_mha and fused_train_mha_rng) against their plain versions
-     at the six shapes one train step gives them, times them beside
-     scaled_dot_product_attention with dropout, and recovers the in-kernel
-     dropout mask with a probe. Then, for each variant, it compares the
+     at the six shapes one train step gives them, times them (device time,
+     device_ms) beside scaled_dot_product_attention with dropout, recovers
+     the in-kernel dropout mask with a probe on the short path (d = 32 and
+     d = 160) and on the long path, and checks that ptxas reports no spill
+     in any training-attention instance (each instance's registers and each
+     site's launch plan, train_mha_plan, are printed after the build).
+     Then, for each variant, it compares the
      first step's loss and gradient with the kernels (training attention
      and additive_scores) swapped for their plain versions (same dropout
      bits), runs 10 steps on one repeated batch with the kernels (launch
@@ -1291,13 +1295,13 @@ def check_and_time_train_mha(dev, gen):
         lib_keep[:, 0] = True              # SDPA gives NaN on empty rows
         qh, kh, vh, doh = (x.view(x.shape[0], -1, H, d).transpose(1, 2)
                            for x in (q, k, v, do))
-        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        lib_fwd = device_ms(lambda: F.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=lib_keep[:, None, None, :], dropout_p=RATE))
         xs = [x.detach().clone().requires_grad_() for x in (qh, kh, vh)]
         lib_out = F.scaled_dot_product_attention(
             *xs, attn_mask=lib_keep[:, None, None, :], dropout_p=RATE)
-        lib_bwd = time_ms(lambda: torch.autograd.grad(lib_out, xs, doh,
-                                                      retain_graph=True))
+        lib_bwd = device_ms(lambda: torch.autograd.grad(lib_out, xs, doh,
+                                                        retain_graph=True))
         for variant, rng in VARIANTS.items():
             if rng:
                 src = torch.tensor([0x243F6A88, r + lk], dtype=torch.int64,
@@ -1333,10 +1337,10 @@ def check_and_time_train_mha(dev, gen):
             check(all(bool((x[:2] == 0).all()) for x in outs[0]),
                   f"train_mha {variant} {site}: all-padding rows not 0")
             _, stats = ta._launch_fwd(q, k, v, keep, src, H, RATE, rng)
-            ms_f = time_ms(lambda: ta._launch_fwd(q, k, v, keep, src, H,
-                                                  RATE, rng))
-            ms_b = time_ms(lambda: ta._launch_bwd(q, k, v, keep, src, do,
-                                                  stats, H, RATE, rng))
+            ms_f = device_ms(lambda: ta._launch_fwd(q, k, v, keep, src, H,
+                                                    RATE, rng))
+            ms_b = device_ms(lambda: ta._launch_bwd(q, k, v, keep, src, do,
+                                                    stats, H, RATE, rng))
             plain_mask = ((lambda: ta.philox_keep_mask(src, r, H, lq, lk,
                                                        RATE)) if rng
                           else (lambda: src))
@@ -1370,14 +1374,17 @@ def check_and_time_train_mha(dev, gen):
     return total, rows
 
 
-def probe_rng_mask(dev):
-    """The in-kernel mask at the (640, 100, 100, 256) site, recovered as the
-    JAX package's test does: q = k = 0 makes the probabilities uniform, and
-    v's lanes of each head are basis vectors over a chunk of d keys, so the
-    output lanes are the dropped probabilities of those keys. It must equal
-    philox_keep_mask bit for bit, and keep 1 - RATE of the elements."""
+# the probe's sites: the short path (d = 32 and d = 160) and the long path
+PROBE_SITES = ((B * P, LP, LP, E), (B, LQ, LQ, 5 * E), (B, T_ANS, P * LP, E))
+
+
+def probe_rng_mask(dev, r, lq, lk, e):
+    """The in-kernel mask at a site, recovered as the JAX package's test
+    does: q = k = 0 makes the probabilities uniform, and v's lanes of each
+    head are basis vectors over a chunk of d keys, so the output lanes are
+    the dropped probabilities of those keys. It must equal philox_keep_mask
+    bit for bit, and keep 1 - RATE of the elements."""
     from case_rg_tpu_torch.kernels import train_attention as ta
-    r, lq, lk, e = B * P, LP, LP, E
     d = e // H
     seed = torch.tensor([0x9E3779B9, 7], dtype=torch.int64, device=dev)
     z = torch.zeros(r, lq, e, dtype=torch.bfloat16, device=dev)
@@ -1392,12 +1399,55 @@ def probe_rng_mask(dev):
         for h in range(H):
             got[:, h, :, c0:c0 + n] = out[:, :, h * d:h * d + n] != 0
     want = ta.philox_keep_mask(seed, r, H, lq, lk, RATE)
-    check(torch.equal(got, want), "probe: the kernel's mask is not "
+    site = (r, lq, lk, e)
+    check(torch.equal(got, want), f"probe {site}: the kernel's mask is not "
           f"philox_keep_mask ({int((got != want).sum())} elements differ)")
     share = got.float().mean().item()
     check(abs(share - (1 - RATE)) <= KEEP_SHARE_TOL,
-          f"probe: keep share {share}, expected {1 - RATE}")
-    return {"keep_share": share, "elements": got.numel()}
+          f"probe {site}: keep share {share}, expected {1 - RATE}")
+    return {"site": site, "path": ta.train_mha_plan(lq, lk, d)["path"]["fwd"],
+            "keep_share": share, "elements": got.numel()}
+
+
+def train_mha_instances(log: str):
+    """Registers and spills of each training-attention kernel instance, from
+    the ptxas -v log: [{"kernel": "fwd_short<32,4,1>", "registers": n,
+    "spill_stores": b, "spill_loads": b}, ...]."""
+    import re
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            k = re.search(r"\d+(fwd_short|fwd_long|bwd_tile|bwd_rows)I(\w*?)EEv",
+                          name)
+            args = ",".join(v for _, v in re.findall(r"L([ib])(\d+)E",
+                                                     k.group(2))) if k else ""
+            cur = {"kernel": f"{k.group(1)}<{args}>" if k else name}
+            out.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def train_mha_plans():
+    """Each site's launches from train_mha_plan, per variant."""
+    from case_rg_tpu_torch.kernels import train_attention as ta
+    rows = []
+    for (r, lq, lk, e) in TRAIN_SITES:
+        for variant, rng in VARIANTS.items():
+            plan = ta.train_mha_plan(lq, lk, e // H, rng)
+            rows.append({"site": (r, lq, lk, e), "variant": variant,
+                         "path": plan["path"],
+                         "launches": [ln._asdict() for ln in
+                                      plan["fwd"] + plan["bwd"]]})
+    return rows
 
 
 class _PlainTrainMHA(torch.autograd.Function):
@@ -1566,6 +1616,24 @@ def train_case(dev):
     return out
 
 
+def train_attention_phase(dev, gen, instances):
+    """The training-attention kernels against their plain versions and
+    timed at every site, the mask probes, and no spill in any kernel
+    instance (``instances``: train_mha_instances of the build log)."""
+    tmha, tmha_rows = check_and_time_train_mha(dev, gen)
+    print("train attention sites: " + json.dumps(tmha_rows), flush=True)
+    print("train attention: " + json.dumps(tmha), flush=True)
+    for site in PROBE_SITES:
+        print("train attention probe: " + json.dumps(probe_rng_mask(dev,
+                                                                    *site)),
+              flush=True)
+    check(len(instances) > 0 and all(
+        x.get("spill_stores", 1) == 0 and x.get("spill_loads", 1) == 0
+        for x in instances), "train attention: ptxas reports spills (or no "
+          "report)")
+    return tmha
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1592,6 +1660,10 @@ def main() -> int:
                 print(f"  {name}: {line.split(':', 1)[1].strip()}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
+    instances = train_mha_instances(logs["train_attention"])
+    print("train attention instances: " + json.dumps(instances), flush=True)
+    print("train attention plans: " + json.dumps(train_mha_plans()),
+          flush=True)
     mha, mha_rows = check_and_time_mha(dev, gen)
     print("fused_mha sites: " + json.dumps(mha_rows), flush=True)
     stack = check_and_time_stack(dev)
@@ -1615,10 +1687,7 @@ def main() -> int:
     print("beam and sampling: " + json.dumps(decoding), flush=True)
     sampled = serve_continuous_sampled(dev, cfg, model, reqs, caps)
     print("sampled continuous serving: " + json.dumps(sampled), flush=True)
-    tmha, tmha_rows = check_and_time_train_mha(dev, gen)
-    print("train attention sites: " + json.dumps(tmha_rows), flush=True)
-    print("train attention probe: " + json.dumps(probe_rng_mask(dev)),
-          flush=True)
+    tmha = train_attention_phase(dev, gen, instances)
     train = train_case(dev)
     print("case training: " + json.dumps(train), flush=True)
 
