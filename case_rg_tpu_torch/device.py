@@ -6,6 +6,8 @@ it (the tests do)."""
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -32,3 +34,17 @@ def batch_to_device(batch: dict, device: torch.device) -> dict:
             v = v.long()
         out[k] = v.to(device, non_blocking=True)
     return out
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """Inside the block, any operation that makes the host wait on the card
+    (a blocking copy, ``.item()``, a stream or device synchronise) raises
+    (``torch.cuda.set_sync_debug_mode("error")``). The step loops run under
+    it in the ``cuda`` tests and in chip_smoke.py."""
+    saved = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(saved)

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface and loaded with ``ctypes``. The
 build happens at first use, from the sources in the checkout, into
-``build/kernels/<hash>/`` at the repository root (``.gitignore`` lists
-``build/``); the hash covers the sources and the flags, so an edited source
-builds anew. ``build_all()`` starts one ``nvcc`` per source, all at once.
+``build/kernels/<name>-<hash>/`` at the repository root (``.gitignore``
+lists ``build/``); the hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header builds anew.
+``build_all()`` starts one ``nvcc`` per source, all at once.
 
 Nothing here runs when the module is imported: the CPU tests import every
 module, and this machine may have no ``nvcc``.
@@ -46,8 +47,13 @@ def _nvcc() -> str:
 
 
 def _build_dir(name: str) -> Path:
+    """Keyed on the source, every header under csrc/ (a source may include
+    any of them) and the flags."""
     h = hashlib.sha256()
     h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_ROOT / f"{name}-{h.hexdigest()[:16]}"
 

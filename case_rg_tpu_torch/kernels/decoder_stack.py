@@ -9,15 +9,17 @@ cross K/V cache is ever built.
 
 ``stack_step`` is the wrapper: on a CUDA tensor it launches the
 hand-written kernel in ``csrc/decoder_stack.cu`` (bf16 only; one launch
-runs every layer) and counts the launch in ``LAUNCHES``; on a CPU tensor it
-runs ``stack_step_plain``, the same function in PyTorch with the bf16
-roundings at the same points. Both update the KV cache IN PLACE (only slot
-t of each layer is written) and return it.
+runs every layer, a row on a cluster of two blocks or on one, as
+``stack_step_plan`` lays it out) and counts the launch in ``LAUNCHES``; on
+a CPU tensor it runs ``stack_step_plain``, the same function in PyTorch
+with the bf16 roundings at the same points. Both update the KV cache IN
+PLACE (only slot t of each layer is written) and return it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Tuple
 
 import numpy as np
@@ -30,6 +32,7 @@ from . import _build
 LAUNCHES = 0        # kernel launches since the last reset (plain runs excluded)
 _LN_EPS = 1e-5
 _SMEM_LIMIT = 232448   # bytes of shared memory one block may use on sm_90
+_E = 256               # the stream width the kernel takes
 
 # operand order of the kernel's weight-pointer array (csrc/decoder_stack.cu)
 WEIGHT_KEYS = ("ln1g", "ln1b", "wqkv", "bqkv", "wos", "bos",
@@ -87,6 +90,57 @@ def fold_stack_weights(decoder, num_layers: int, num_heads: int,
         out["w2"].append(p.ffn.linear2.weight.float().t())
         out["b2"].append(p.ffn.linear2.bias.float())
     return {k: torch.stack(v).to(dtype).contiguous() for k, v in out.items()}
+
+
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _span(cluster: int, l: int) -> int:
+    """Positions of a row's memory each block of the cluster owns."""
+    return l if cluster == 1 else _up(_up(l, cluster) // cluster, 16)
+
+
+def stack_step_smem(cluster: int, tmax: int, l: int, h: int, f: int) -> int:
+    """Shared-memory bytes of one block (``csrc/decoder_stack.cu``,
+    ``smem_bytes``): the stream and its intermediates, the scores of the
+    block's positions [H, max(span, T)], the matrix-vector partial sums,
+    the context partials, the cluster's max and sum exchange, the history
+    mask and, with two blocks a row, both blocks' context partials [2, H,
+    E]."""
+    e = _E
+    lt = max(_span(cluster, l), tmax)
+    return 4 * (5 * e + 8 * e // 2 + max(8 * e, f) + h * lt + 8 * 512
+                + 8 * 8 * e + 64 + tmax + (cluster * h * e if cluster > 1
+                                           else 0))
+
+
+def stack_step_plan(b: int, l: int, tmax: int, h: int, f: int,
+                    max_clusters: int) -> dict:
+    """The launch for a step of B rows over L memory positions (history T,
+    H heads, FFN width F) on a card that holds ``max_clusters`` two-block
+    clusters at once (cudaOccupancyMaxActiveClusters):
+    ``{"cluster", "span", "smem", "blocks"}``.
+
+    A row runs on a cluster of two blocks (each owning ``span`` positions
+    and half of every product's columns) where one wave of clusters holds
+    the batch, and on one block otherwise: two blocks a row in two or more
+    waves would read every weight and position once per wave, where one
+    block a row reads them in one wave or two. Where one block's shared
+    memory cannot hold a row's scores, two blocks a row take it. Raises
+    where neither fits."""
+    fits = {c: stack_step_smem(c, tmax, l, h, f) <= _SMEM_LIMIT
+            for c in (1, 2)}
+    if fits[2] and (b <= max_clusters or not fits[1]):
+        cluster = 2
+    elif fits[1]:
+        cluster = 1
+    else:
+        raise ValueError(f"stack_step: no launch fits L={l}, T={tmax}, H={h}, "
+                         f"F={f} in a block's shared memory")
+    return {"cluster": cluster, "span": _span(cluster, l),
+            "smem": stack_step_smem(cluster, tmax, l, h, f),
+            "blocks": cluster * b}
 
 
 def _scale(d: int, dtype) -> torch.Tensor:
@@ -169,7 +223,8 @@ def stack_step(x: torch.Tensor, t, caches: torch.Tensor, m: torch.Tensor,
     out of [0, T) skip their cache write); caches: [B, n_layers, T, 2E]
     packed K|V, updated in place; m: [B, L, E] raw encoder memory;
     mem_keep/hist_keep: [B, L]/[B, T] bool; folded: output of
-    ``fold_stack_weights``. Returns (x_out [B, E], caches)."""
+    ``fold_stack_weights``. On the card the launch is
+    ``stack_step_launch``'s. Returns (x_out [B, E], caches)."""
     if x.device.type == "cpu":
         return stack_step_plain(x, t, caches, m, mem_keep, hist_keep, folded,
                                 num_heads)
@@ -208,10 +263,10 @@ def stack_step(x: torch.Tensor, t, caches: torch.Tensor, m: torch.Tensor,
         raise ValueError(f"stack_step: the kernel takes E=256, at most 8 heads "
                          f"of a width divisible by 8 and an FFN width "
                          f"divisible by 256; got E={e}, H={h}, F={f}")
-    smem = lib.stack_step_smem_bytes(tmax, l, h, f)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"stack_step: L={l}, H={h}, E={e} needs {smem} "
-                         "bytes of shared memory, more than a block has")
+    plan = stack_step_launch(b, l, tmax, h, f)
+    if lib.stack_step_smem_bytes(plan["cluster"], tmax, l, h, f) != plan["smem"]:
+        raise RuntimeError("stack_step: the C launcher and stack_step_plan "
+                           "count shared memory differently")
     tt = _rows_t(t, b, x.device)
     mem_keep = mem_keep.contiguous()
     hist_keep = hist_keep.contiguous()
@@ -222,24 +277,45 @@ def stack_step(x: torch.Tensor, t, caches: torch.Tensor, m: torch.Tensor,
         x.data_ptr(), tt.data_ptr(), caches.data_ptr(), m.data_ptr(),
         mem_keep.data_ptr(), hist_keep.data_ptr(), ptrs, xout.data_ptr(),
         b, nl, tmax, e, l, h, f, float(_scale(e // h, torch.bfloat16)),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        plan["cluster"], torch.cuda.current_stream(x.device).cuda_stream, None)
     _build.check(rc, "stack_step")
     global LAUNCHES
     LAUNCHES += 1
     return xout, caches
 
 
+@functools.lru_cache(maxsize=None)
+def max_active_clusters(l: int, tmax: int, h: int, f: int) -> int:
+    """cudaOccupancyMaxActiveClusters of the two-block launch at these
+    shapes on the current card: how many rows it runs at once."""
+    smem = stack_step_smem(2, tmax, l, h, f)
+    if smem > _SMEM_LIMIT:
+        return 0
+    n = ctypes.c_int(0)
+    rc = _lib().stack_step_bf16(*[None] * 8, 1, 1, tmax, _E, l, h, f, 1.0, 2,
+                                None, ctypes.byref(n))
+    _build.check(rc, "stack_step occupancy")
+    return n.value
+
+
+def stack_step_launch(b: int, l: int, tmax: int, h: int, f: int) -> dict:
+    """``stack_step_plan`` on the current card."""
+    return stack_step_plan(b, l, tmax, h, f, max_active_clusters(l, tmax, h, f))
+
+
 def _lib():
     lib = _build.load("decoder_stack")
     if not getattr(lib, "_argtypes_set", False):
-        lib.stack_step_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.stack_step_smem_bytes.argtypes = [ctypes.c_int] * 5
         lib.stack_step_smem_bytes.restype = ctypes.c_int
         lib.stack_step_supports.argtypes = [ctypes.c_int] * 3
         lib.stack_step_supports.restype = ctypes.c_int
         lib.stack_step_bf16.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_void_p),
                                      ctypes.c_void_p]
-            + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+            + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
+                                    ctypes.c_void_p,
+                                    ctypes.POINTER(ctypes.c_int)])
         lib.stack_step_bf16.restype = ctypes.c_int
         lib._argtypes_set = True
     return lib

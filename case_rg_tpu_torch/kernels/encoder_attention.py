@@ -2,15 +2,17 @@
 ``case_rg_tpu/kernels/encoder_attention.py``).
 
 ``fused_mha`` is the wrapper: on a CUDA tensor it launches the hand-written
-kernel in ``csrc/encoder_attention.cu`` (bf16 only) and counts the launch
-in ``LAUNCHES``; on a CPU tensor it runs ``fused_mha_plain``, the same
-function in PyTorch. The encoder and tower self-attention sites reach it
-through ``ops/attention.MultiHeadAttention.attend_with_kv``.
+kernel in ``csrc/encoder_attention.cu`` (bf16 only) as ``fused_mha_plan``
+lays it out, and counts the launch in ``LAUNCHES``; on a CPU tensor it runs
+``fused_mha_plain``, the same function in PyTorch. The encoder and tower
+self-attention sites reach it through
+``ops/attention.MultiHeadAttention.attend_with_kv``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -20,6 +22,34 @@ from . import _build
 
 LAUNCHES = 0        # kernel launches since the last reset (plain runs excluded)
 _SMEM_LIMIT = 232448   # bytes of shared memory one block may use on sm_90
+_MAX_KEYS = 128
+_MAX_WARPS = 8
+_WIDTHS = (32, 160)    # head widths with a compiled instance of their own
+
+
+@functools.lru_cache(maxsize=None)
+def fused_mha_plan(lq: int, lk: int, d: int) -> dict:
+    """The kernel's launch at (Lq, Lk, head width d), as its C launcher
+    lays it out (``csrc/encoder_attention.cu``): grid (R, H); one warp per
+    16 queries, at most 8 (more query tiles loop); ``kt`` keys a block
+    holds (64, 112 or 128: the scores of 16 queries sit whole in a warp's
+    registers); the instance ``<d, kt / 16>`` (``<0, ..>`` reads a width
+    other than 32 or 160 at run time); ``smem`` bytes of shared memory
+    (q, K and V tiles, rows padded by 8 bf16, and the key mask). Raises
+    on a shape the kernel does not take."""
+    if d < 16 or d % 16 or not 1 <= lk <= _MAX_KEYS or lq < 1:
+        raise ValueError(f"fused_mha: the kernel takes head widths divisible "
+                         f"by 16 and 1 to {_MAX_KEYS} keys; got d={d}, "
+                         f"Lk={lk}, Lq={lq}")
+    kt = next(n for n in (64, 112, _MAX_KEYS) if lk <= n)
+    mpad = -(-lq // 16) * 16
+    smem = 2 * (mpad + 2 * kt) * (d + 8) + kt
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"fused_mha: Lq={lq}, Lk={lk}, d={d} needs {smem} "
+                         "bytes of shared memory, more than a block has")
+    return {"warps": min(mpad // 16, _MAX_WARPS), "kt": kt,
+            "instance": f"<{d if d in _WIDTHS else 0},{kt // 16}>",
+            "smem": smem}
 
 
 def _scale(d: int, dtype) -> torch.Tensor:
@@ -74,16 +104,15 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError("fused_mha: keep must be a bool [R, Lk] tensor "
                              "on q's device")
         keep = keep.contiguous()
-    lib = _lib()
+    if e % num_heads:
+        raise ValueError(f"fused_mha: E={e} does not split into {num_heads} "
+                         "heads")
     d = e // num_heads
-    if e % num_heads or not lib.fused_mha_supports(lk, d):
-        raise ValueError(f"fused_mha: the kernel takes heads of a width "
-                         f"divisible by 16 and at most 128 keys; got E={e}, "
-                         f"H={num_heads}, Lk={lk}")
-    smem = lib.fused_mha_smem_bytes(lq, lk, d)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"fused_mha: Lk={lk}, d={d} needs {smem} bytes of "
-                         "shared memory, more than a block has")
+    plan = fused_mha_plan(lq, lk, d)
+    lib = _lib()
+    if lib.fused_mha_smem_bytes(lq, lk, d) != plan["smem"]:
+        raise RuntimeError("fused_mha: the C launcher and fused_mha_plan "
+                           "count shared memory differently")
     out = torch.empty_like(q)
     rc = lib.fused_mha_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -99,8 +128,6 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _lib():
     lib = _build.load("encoder_attention")
     if not getattr(lib, "_argtypes_set", False):
-        lib.fused_mha_supports.argtypes = [ctypes.c_int] * 2
-        lib.fused_mha_supports.restype = ctypes.c_int
         lib.fused_mha_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.fused_mha_smem_bytes.restype = ctypes.c_int
         lib.fused_mha_bf16.argtypes = (

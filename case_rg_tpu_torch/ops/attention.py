@@ -11,6 +11,7 @@ the PV product.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -114,6 +115,15 @@ def _mask_scores(scores, key_keep):
                                   device=scores.device))
 
 
+@functools.lru_cache(maxsize=None)
+def _attend_scale(d: int, dtype) -> float:
+    """1/sqrt(d) in f32 rounded to ``dtype``, once per (d, dtype). A Python
+    float: a 0-dim CPU tensor moved to the card per call would be a
+    blocking copy, a synchronisation of the stream in every train step."""
+    return float(torch.tensor(1.0 / np.sqrt(np.float32(d)),
+                              dtype=torch.float32).to(dtype))
+
+
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            attn_bias: Optional[torch.Tensor] = None,
            key_keep: Optional[torch.Tensor] = None,
@@ -124,9 +134,7 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Scaled dot-product attention on [B, H, L, d] tensors. ``attn_bias``:
     additive [Lq, Lk]; ``key_keep``: bool [B, Lk], True = attend; with a
     generator ``gen``, dropout at ``dropout_rate`` on the probabilities."""
-    d = q.shape[-1]
-    scale = torch.tensor(1.0 / np.sqrt(np.float32(d)), dtype=torch.float32
-                         ).to(device=q.device, dtype=q.dtype)
+    scale = _attend_scale(q.shape[-1], q.dtype)
     scores = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
     if attn_bias is not None:
         scores = scores + attn_bias.float()[None, None]

@@ -4,6 +4,7 @@ then dropout when a generator is given (training)."""
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -23,6 +24,14 @@ def sinusoid_table(max_len: int, dim: int, dtype=np.float32) -> np.ndarray:
     pe[:, 0::2] = np.sin(position * div_term)
     pe[:, 1::2] = np.cos(position * div_term[: pe[:, 1::2].shape[1]])
     return pe.astype(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _scale(dim: int, dtype) -> float:
+    """sqrt(dim) rounded to ``dtype``, once per (dim, dtype). A Python
+    float: a 0-dim tensor built on the card per call would be a blocking
+    host-to-device copy, a synchronisation of the stream every step."""
+    return float(torch.tensor(np.sqrt(dim), dtype=dtype))
 
 
 class PositionalEmbedding(nn.Module):
@@ -50,6 +59,4 @@ class PositionalEmbedding(nn.Module):
             pe = table[pos.clamp(max=table.shape[0] - 1)]     # [B, L, D]
         else:
             pe = table[int(offset):int(offset) + length]
-        scale = torch.tensor(np.sqrt(self.dim), dtype=x.dtype,
-                             device=x.device)
-        return dropout(x * scale + pe, self.dropout, gen)
+        return dropout(x * _scale(self.dim, x.dtype) + pe, self.dropout, gen)

@@ -8,10 +8,14 @@ In order it
   1. prints the card's name and power limit, builds the CUDA kernels from
      case_rg_tpu_torch/csrc (nvcc, sm_90a, one process per source, all at
      once) and prints the build time and each kernel's registers and shared
-     memory (ptxas -v);
+     memory (ptxas -v), then each serving kernel instance's registers and
+     spills ("serving kernel instances"; a spill fails the run);
   2. holds each kernel against its plain PyTorch version on the card, in
      bf16, at the shapes CaSE serving gives it (tolerances below):
-     fused_mha, stack_step, single_query_mha (the query memory, the packed
+     fused_mha (the four sites, two launches equal bit for bit),
+     stack_step (at B=64, a cluster of two blocks a row, and at the beam's
+     256 rows, one block a row; self-fed steps, per-row t, a repeat equal
+     bit for bit), single_query_mha (the query memory, the packed
      self-attention history, beam rows, and a 1000-key check) and
      additive_scores (a decode step and teacher forcing over each memory,
      forward, and backward at teacher forcing);
@@ -19,7 +23,12 @@ In order it
      computes the same function, that call (CUDA events, after warm-up),
      beside the least time the card could take (bytes over 3.35 TB/s, or
      operations over their peak; additive_scores' tanh over the
-     special-function unit's rate at the card's maximum clock);
+     special-function unit's rate at the card's maximum clock); fused_mha
+     and SDPA by device time behind a spin kernel (device_ms), per site;
+     stack_step by device time per predict (B=64) and per beam batch (B x
+     4 rows), in the plan's layout and with the other forced, and 40 steps
+     at other batches in both, with the plans and the card's max active
+     clusters;
   4. builds CaSE at the serving widths (V=30522, E=256, H=8, 3 encoder and
      2x4 decoder layers, bf16 weights drawn from a seed, with noisy biases
      and LayerNorm gains) and serves B=64 batches (query 60, pool 10x100,
@@ -32,6 +41,9 @@ In order it
      dense single-query attention and copy scores; rank gated, answers
      reported). Last, it profiles two batches with torch.profiler: device
      busy and idle share, and the kernels that take the most device time;
+     then runs every greedy _step_core step of a predict and one
+     decode_chunk (pallas and dense modes) under no_host_sync (an operation
+     that makes the host wait on the card raises; "sync check");
   5. holds combine_copy_mass, the copy-argmax combine, against its plain
      version at the decode's shape (B=64, source 60 + 10x100 = 1060, bf16
      copy mass, ids drawn Zipf-like so they repeat as text does, padding as
@@ -75,8 +87,8 @@ In order it
      and additive_scores) swapped for their plain versions (same dropout
      bits), runs 10 steps on one repeated batch with the kernels (launch
      counters set to 0 just before, read just after; the loss must fall),
-     the same 10 steps with the plain versions, and profiles two steps with
-     torch.profiler;
+     the same 10 steps with the plain versions, profiles two steps with
+     torch.profiler, and runs one step under no_host_sync;
  11. prints one JSON line {"kernels": [...]} and, last, the device line
      {"ok": true, "device": {...}}.
 
@@ -234,14 +246,18 @@ def bound_ms(n_bytes: float, n_flops: float, peak_flops=PEAK_BF16_FLOPS):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def sfu_per_s() -> float:
-    """tanh.approx results a second: 16 per clock on each of 132 SMs at the
-    card's maximum SM clock (nvidia-smi)."""
-    mhz = float(subprocess.run(
+def max_sm_mhz() -> float:
+    """The card's maximum SM clock (nvidia-smi)."""
+    return float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True).stdout.split()[0])
-    return 16 * 132 * mhz * 1e6
+
+
+def sfu_per_s() -> float:
+    """tanh.approx results a second: 16 per clock on each of 132 SMs at the
+    card's maximum SM clock."""
+    return 16 * 132 * max_sm_mhz() * 1e6
 
 
 def nbytes(*tensors) -> int:
@@ -279,13 +295,18 @@ def check_and_time_mha(dev, gen):
         lib_keep = keep.clone()
         lib_keep[:, 0] = True              # SDPA gives NaN on empty rows
         lib_mask = lib_keep[:, None, None, :]
-        ms = time_ms(lambda: ea.fused_mha(q, k, v, keep, H))
+        again = ea.fused_mha(q, k, v, keep, H)
+        torch.cuda.synchronize()
+        check(torch.equal(out, again), f"fused_mha R={r} L={l} E={e}: two "
+              "launches differ")
+        ms = device_ms(lambda: ea.fused_mha(q, k, v, keep, H))
         plain = time_ms(lambda: ea.fused_mha_plain(q, k, v, keep, H))
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
+        lib = device_ms(lambda: F.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=lib_mask))
         n_bytes = nbytes(q, k, v, keep, out)
         n_flops = 4 * l * d * H * int(keep.sum().item())   # QK^T and PV, valid keys
         rows.append({"rows": r, "L": l, "E": e, "d": d, "sites": count,
+                     "plan": ea.fused_mha_plan(l, l, d),
                      "max_abs_err": err, "max_ulps": ulps,
                      "ms": ms, "plain_ms": plain,
                      "library_ms": lib,
@@ -323,15 +344,115 @@ def stack_setup(dev, seed):
     return fold, m, x, mem_keep, gen
 
 
+# stack_step at the served batches: B=64 rows (a predict, and continuous
+# serving's 64 slots), where the plan runs a row on a cluster of two
+# blocks, and B x BEAM_WIDTH rows under beam search, where it runs a row on
+# one block; each is held against the plain version in the plan's layout
+STACK_SHAPES = (("predict", B, 2), ("beam batch", B * BEAM_WIDTH, 1))
+STACK_BATCHES = (8, 32, 100, 128)       # timed in both layouts as well
+
+
+def start_stack_phase_build(_build):
+    """Start nvcc on a copy of csrc/decoder_stack.cu whose every `// phase
+    <name>` line (the ends of the layer loop's phases) becomes a clock64
+    mark by thread 0 of block 0 into a device array, which the added
+    read_stack_phases copies out. Returns (the nvcc process, the library's
+    path, the phase names); the caller waits for the process."""
+    import re
+    phase = re.compile(r"\s*// phase (.+)")
+    src = os.path.join(_build.CSRC, "decoder_stack.cu")
+    lines = open(src).read().splitlines()
+    names = [m.group(1) for m in map(phase.fullmatch, lines) if m]
+    n = len(names)
+    out, k = [], 0
+    for ln in lines:
+        if phase.fullmatch(ln):
+            out.append(f"if (threadIdx.x == 0 && blockIdx.x == 0) "
+                       f"g_phase[layer * {n} + {k}] = clock64();")
+            k += 1
+        else:
+            out.append(ln)
+            if ln == "namespace cg = cooperative_groups;":
+                out.append(f"__device__ long long g_phase[16 * {n}];")
+    out += ['extern "C" int read_stack_phases(long long* dst, int count) {',
+            "  return static_cast<int>(cudaMemcpyFromSymbol(",
+            "      dst, g_phase, sizeof(long long) * count));", "}"]
+    d = os.path.join(_build.BUILD_ROOT, "stack_phases")
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "decoder_stack_phases.cu"), "w") as f:
+        f.write("\n".join(out) + "\n")
+    lib = os.path.join(d, "libstack_phases.so")
+    proc = subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+         lib, os.path.join(d, "decoder_stack_phases.cu")],
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    return proc, lib, names
+
+
+def stack_phases(dev, build, shapes):
+    """Clock64 marks of one step (t = 20) at each (name, rows) of
+    ``shapes``, in the plan's layout, through the instrumented build of
+    start_stack_phase_build: per phase the cycles of block 0 averaged over
+    the layers and their microseconds at the card's maximum SM clock, and
+    the step's cycles."""
+    import ctypes
+    from case_rg_tpu_torch.kernels import _build
+    from case_rg_tpu_torch.kernels import decoder_stack as ds
+    proc, path, names = build
+    check(proc.returncode == 0, "stack_step phases: nvcc failed")
+    lib = ctypes.CDLL(path)
+    kernel_lib = ds._lib()
+    for fn in ("stack_step_smem_bytes", "stack_step_supports",
+               "stack_step_bf16"):
+        getattr(lib, fn).argtypes = getattr(kernel_lib, fn).argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.read_stack_phases.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    fold, m, x, mem_keep, _ = stack_setup(dev, seed=3)
+    mhz = max_sm_mhz()
+    n = len(names)
+    rows_of = lambda a, b: a.repeat_interleave(-(-b // B), 0)[:b]
+    out = {}
+    plain_lib = ds._lib
+    ds._lib = lambda: lib
+    try:
+        for what, b in shapes:
+            xb, mb, kb = rows_of(x, b), rows_of(m, b), rows_of(mem_keep, b)
+            hist = torch.arange(T_ANS, device=dev)[None, :].expand(b, T_ANS) <= 20
+            cache = torch.zeros(b, DEC_LAYERS, T_ANS, 2 * E,
+                                dtype=torch.bfloat16, device=dev)
+            for _ in range(2):
+                ds.stack_step(xb, 20, cache, mb, kb, hist, fold, H)
+            torch.cuda.synchronize()
+            marks = (ctypes.c_longlong * (DEC_LAYERS * n))()
+            _build.check(lib.read_stack_phases(marks, DEC_LAYERS * n),
+                         "read_stack_phases")
+            v = torch.tensor(list(marks), dtype=torch.float64).view(DEC_LAYERS, n)
+            cyc = (v[:, 1:] - v[:, :-1]).mean(0)
+            out[what] = {"rows": b, "mhz": mhz,
+                         "step_cycles": float(v[-1, -1] - v[0, 0]),
+                         "us_per_layer": {nm: c / mhz for nm, c in
+                                          zip(names[1:], cyc.tolist())}}
+    finally:
+        ds._lib = plain_lib
+    return out
+
+
 def check_and_time_stack(dev):
+    """stack_step against its plain version (six self-fed steps from a zero
+    cache, per-row t with done rows, two launches equal bit for bit) at
+    STACK_SHAPES, each in the plan's layout (asserted). Device times of one
+    predict (40 steps) at B=64 and of one beam batch, in the plan's layout
+    and, for comparison, with the other layout forced, and of 40 steps at
+    STACK_BATCHES in both; the plans and the card's max active
+    clusters."""
     from case_rg_tpu_torch.kernels import decoder_stack as ds
     fold, m, x, mem_keep, gen = stack_setup(dev, seed=3)
-    zeros = lambda: torch.zeros(B, DEC_LAYERS, T_ANS, 2 * E,
-                                dtype=torch.bfloat16, device=dev)
-    # scalar t, six self-fed steps: outputs each step, caches at the end
-    ck, cp = zeros(), zeros()
-    hist = torch.zeros(B, T_ANS, dtype=torch.bool, device=dev)
-    xk = xp = x
+    lm = P * LP
+    f = fold["w1"].shape[2]
+    mac = ds.max_active_clusters(lm, T_ANS, H, f)
+    zeros = lambda b: torch.zeros(b, DEC_LAYERS, T_ANS, 2 * E,
+                                  dtype=torch.bfloat16, device=dev)
+    rows_of = lambda a, b: a.repeat_interleave(-(-b // B), 0)[:b]
     readings = {}
 
     def hold(what, out, ref):
@@ -340,60 +461,108 @@ def check_and_time_stack(dev):
               f"bf16 ulps > {STACK_ULPS}")
         readings[what] = (ulps, err)
 
-    for t in range(6):
-        hist[:, t] = True
-        xk, ck = ds.stack_step(xk, t, ck, m, mem_keep, hist, fold, H)
-        xp, cp = ds.stack_step_plain(xp, t, cp, m, mem_keep, hist, fold, H)
+    for what, b, cluster in STACK_SHAPES:
+        plan = ds.stack_step_plan(b, lm, T_ANS, H, f, mac)
+        check(plan["cluster"] == cluster,
+              f"stack_step {what}: the plan runs a row on {plan['cluster']} "
+              f"blocks, not {cluster}")
+        tag = f"{what} B={b}"
+        mb, xb, kb = rows_of(m, b), rows_of(x, b), rows_of(mem_keep, b)
+        # scalar t, six self-fed steps: outputs each step, caches at the end
+        ck, cp = zeros(b), zeros(b)
+        hist = torch.zeros(b, T_ANS, dtype=torch.bool, device=dev)
+        xk = xp = xb
+        for t in range(6):
+            hist[:, t] = True
+            xk, ck = ds.stack_step(xk, t, ck, mb, kb, hist, fold, H)
+            xp, cp = ds.stack_step_plain(xp, t, cp, mb, kb, hist, fold, H)
+            torch.cuda.synchronize()
+            hold(f"{tag} output t={t}", xk, xp)
+        hold(f"{tag} caches", ck, cp)
+        # per-row t: rows pointed at T skip their write; a repeat is equal
+        t_rows = torch.randint(0, T_ANS, (b,), generator=gen, device=dev)
+        t_rows[::4] = T_ANS
+        hist = torch.rand(b, T_ANS, generator=gen, device=dev) > 0.3
+        c0 = torch.randn(b, DEC_LAYERS, T_ANS, 2 * E, generator=gen,
+                         device=dev).to(torch.bfloat16)
+        ck, ck2, cp = c0.clone(), c0.clone(), c0.clone()
+        yk, ck = ds.stack_step(xb, t_rows, ck, mb, kb, hist, fold, H)
+        y2, ck2 = ds.stack_step(xb, t_rows, ck2, mb, kb, hist, fold, H)
+        yp, cp = ds.stack_step_plain(xb, t_rows, cp, mb, kb, hist, fold, H)
         torch.cuda.synchronize()
-        hold(f"output t={t}", xk, xp)
-    hold("caches", ck, cp)
-    # per-row t: rows pointed at T skip their write
-    t_rows = torch.randint(0, T_ANS, (B,), generator=gen, device=dev)
-    t_rows[::4] = T_ANS
-    hist = torch.rand(B, T_ANS, generator=gen, device=dev) > 0.3
-    c0 = torch.randn(B, DEC_LAYERS, T_ANS, 2 * E, generator=gen,
-                     device=dev).to(torch.bfloat16)
-    ck, cp = c0.clone(), c0.clone()
-    yk, ck = ds.stack_step(x, t_rows, ck, m, mem_keep, hist, fold, H)
-    yp, cp = ds.stack_step_plain(x, t_rows, cp, m, mem_keep, hist, fold, H)
-    torch.cuda.synchronize()
-    hold("per-row t output", yk, yp)
-    hold("per-row t caches", ck, cp)
-    check(bool((ck[::4] == c0[::4]).all()),
-          "stack_step: a row with t=T wrote its cache")
+        hold(f"{tag} per-row t output", yk, yp)
+        hold(f"{tag} per-row t caches", ck, cp)
+        check(bool((ck[::4] == c0[::4]).all()),
+              f"stack_step {tag}: a row with t=T wrote its cache")
+        check(torch.equal(yk, y2) and torch.equal(ck, ck2),
+              f"stack_step {tag}: two launches differ")
 
-    # one predict's worth: 40 steps, t = 0..39, history growing
-    hists = [torch.arange(T_ANS, device=dev)[None, :].expand(B, T_ANS) <= t
-             for t in range(T_ANS)]
-    cache = zeros()
+    def steps(b):
+        """One predict's worth at b rows: 40 steps, t = 0..39, the history
+        growing."""
+        mb, kb, xb = rows_of(m, b), rows_of(mem_keep, b), rows_of(x, b)
+        hists = [torch.arange(T_ANS, device=dev)[None, :].expand(b, T_ANS) <= t
+                 for t in range(T_ANS)]
+        cache = zeros(b)
 
-    def run(step_fn):
-        def go():
+        def go(step_fn=ds.stack_step):
             for t in range(T_ANS):
-                step_fn(x, t, cache, m, mem_keep, hists[t], fold, H)
-        return go
+                step_fn(xb, t, cache, mb, kb, hists[t], fold, H)
+        return go, mb, kb, xb, hists
 
-    ms = time_ms(run(ds.stack_step), iters=5)
-    plain = time_ms(run(ds.stack_step_plain), iters=2, warmup=1)
     weights = nbytes(*fold.values())
-    n_valid = int(mem_keep.sum().item())
-    n_bytes = n_flops = 0
-    f = fold["w1"].shape[2]
     per_row_mm = 2 * (E * 3 * E + E * E + E * H * E + H * E * E + E * f
                       + f * E)
-    for t in range(T_ANS):
-        n_bytes += (nbytes(x, m, mem_keep, hists[t], x) + weights
-                    + B * DEC_LAYERS * t * 2 * E * 2       # history read
-                    + B * DEC_LAYERS * 2 * E * 2)          # slot t written
-        n_flops += DEC_LAYERS * (B * per_row_mm
-                                 + B * 4 * E * (t + 1)       # self-attn
-                                 + 4 * H * E * n_valid)      # cross-attn
-    b_ms, b_by = bound_ms(n_bytes, n_flops)
-    return {"ms": ms, "plain_ms": plain, "library_ms": None,
-            "bound_ms": b_ms, "bound_by": b_by,
+
+    def bound(b, mb, kb, xb, hists):
+        n_valid = int(kb.sum().item())
+        n_bytes = n_flops = 0
+        for t in range(T_ANS):
+            n_bytes += (nbytes(xb, mb, kb, hists[t], xb) + weights
+                        + b * DEC_LAYERS * t * 2 * E * 2     # history read
+                        + b * DEC_LAYERS * 2 * E * 2)        # slot t written
+            n_flops += DEC_LAYERS * (b * per_row_mm + b * 4 * E * (t + 1)
+                                     + 4 * H * E * n_valid)
+        return bound_ms(n_bytes, n_flops)
+
+    shapes = {}
+    launch = ds.stack_step_launch
+    for what, b, cluster in STACK_SHAPES:
+        go, mb, kb, xb, hists = steps(b)
+        row = {"rows": b, "plan": ds.stack_step_plan(b, lm, T_ANS, H, f, mac),
+               "max_active_clusters": mac, "ms": device_ms(go, iters=3)}
+        # the other layout, forced for this comparison only
+        other = 3 - cluster
+        ds.stack_step_launch = lambda b_, l_, t_, h_, f_: ds.stack_step_plan(
+            b_, l_, t_, h_, f_, b_ if other == 2 else 0)
+        try:
+            row[f"ms_cluster_{other}"] = device_ms(go, iters=3)
+        finally:
+            ds.stack_step_launch = launch
+        row["bound_ms"], row["bound_by"] = bound(b, mb, kb, xb, hists)
+        shapes[what] = row
+    # 40 steps by batch in both layouts (timing only): where the step's
+    # time stops being flat in B, and where two blocks a row stop winning
+    by_batch = {}
+    for b in STACK_BATCHES:
+        go, *_ = steps(b)
+        by_batch[b] = {}
+        for cluster in (1, 2):
+            ds.stack_step_launch = lambda b_, l_, t_, h_, f_: \
+                ds.stack_step_plan(b_, l_, t_, h_, f_, b_ if cluster == 2 else 0)
+            try:
+                by_batch[b][f"ms_cluster_{cluster}"] = device_ms(go, iters=3)
+            finally:
+                ds.stack_step_launch = launch
+    go, *_ = steps(B)
+    plain = time_ms(lambda: go(ds.stack_step_plain), iters=2, warmup=1)
+    pr = shapes["predict"]
+    return {"ms": pr["ms"], "plain_ms": plain, "library_ms": None,
+            "bound_ms": pr["bound_ms"], "bound_by": pr["bound_by"],
             "max_abs_err": max(err for _, err in readings.values()),
             "max_ulps": max(ulps for ulps, _ in readings.values()),
-            "ulps_by_check": {k: u for k, (u, _) in readings.items()}}
+            "ulps_by_check": {k: u for k, (u, _) in readings.items()},
+            "shapes": shapes, "by_batch": by_batch}
 
 
 # ---- phase 2/3: single_query_mha and additive_scores ----
@@ -792,6 +961,52 @@ def serve_case(dev, cfg, model):
         "exact_sums_vs_plain": exact_vs_plain, "vs_routed_off": vs_off,
         "profile": profiled,
     }
+
+
+def sync_check_serving(dev, cfg, model):
+    """The decode step loops under no_host_sync (any operation that makes
+    the host wait on the card raises): every greedy _step_core of one B=64
+    predict, and one decode_chunk of CHUNK_STEPS steps in the pallas and
+    dense argmax modes; the stack kernel's launches inside them."""
+    from case_rg_tpu_torch.device import no_host_sync
+    from case_rg_tpu_torch.kernels import decoder_stack as ds
+    from case_rg_tpu_torch.runtime.continuous import make_continuous_fns
+    from case_rg_tpu_torch.runtime.inference import make_predict_fn
+    batch = make_batch(np.random.RandomState(5))
+    predict = make_predict_fn(model, cfg, T_ANS, device=dev)
+    predict(batch)                                   # warm-up
+    dec = model.decoder
+    core = dec._step_core
+
+    def checked(*args, **kw):
+        with no_host_sync():
+            return core(*args, **kw)
+
+    ds.LAUNCHES = 0
+    dec._step_core = checked
+    try:
+        out = predict(batch)
+    finally:
+        del dec._step_core
+    torch.cuda.synchronize()
+    check(tuple(out["answer"].shape) == (B, T_ANS) and ds.LAUNCHES == T_ANS,
+          f"sync check: answer {tuple(out['answer'].shape)}, stack launches "
+          f"{ds.LAUNCHES}")
+    res = {"greedy _step_core steps": T_ANS}
+    for mode in ("pallas", "dense"):
+        init_fn, chunk_fn, _ = make_continuous_fns(model, T_ANS, CHUNK_STEPS,
+                                                   fast_argmax=mode,
+                                                   device=dev)
+        state, _ = init_fn(batch)
+        state = chunk_fn(state)                      # warm-up
+        ds.LAUNCHES = 0
+        with no_host_sync():
+            state = chunk_fn(state)
+        torch.cuda.synchronize()
+        check(ds.LAUNCHES == CHUNK_STEPS, f"sync check {mode}: stack "
+              f"launches {ds.LAUNCHES}")
+        res[f"decode_chunk ({mode})"] = CHUNK_STEPS
+    return res
 
 
 # ---- phases 5-7: the candidate argmax and continuous serving ----
@@ -1409,21 +1624,34 @@ def probe_rng_mask(dev, r, lq, lk, e):
             "keep_share": share, "elements": got.numel()}
 
 
-def train_mha_instances(log: str):
-    """Registers and spills of each training-attention kernel instance, from
-    the ptxas -v log: [{"kernel": "fwd_short<32,4,1>", "registers": n,
-    "spill_stores": b, "spill_loads": b}, ...]."""
+def _kernel_name(mangled: str) -> str:
+    """A kernel's mangled name as name<template args>, nested names joined
+    by '::' (the anonymous namespace left out)."""
+    import re
+    s = mangled[3:] if mangled.startswith("_ZN") else mangled
+    parts, i = [], 0
+    while i < len(s) and s[i].isdigit():
+        j = i
+        while s[j].isdigit():
+            j += 1
+        n = int(s[i:j])
+        parts.append(s[j:j + n])
+        i = j + n
+    args = re.findall(r"L[ib](\d+)E", s[i:]) if s[i:i + 1] == "I" else []
+    name = "::".join(p for p in parts if not p.startswith("_GLOBAL__N"))
+    return f"{name}<{','.join(args)}>" if args else name
+
+
+def kernel_instances(log: str):
+    """Registers and spills of each kernel instance in a ptxas -v log:
+    [{"kernel": "fwd_short<32,4,1>", "registers": n, "spill_stores": b,
+    "spill_loads": b}, ...]."""
     import re
     out, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = m.group(1)
-            k = re.search(r"\d+(fwd_short|fwd_long|bwd_tile|bwd_rows)I(\w*?)EEv",
-                          name)
-            args = ",".join(v for _, v in re.findall(r"L([ib])(\d+)E",
-                                                     k.group(2))) if k else ""
-            cur = {"kernel": f"{k.group(1)}<{args}>" if k else name}
+            cur = {"kernel": _kernel_name(m.group(1))}
             out.append(cur)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -1434,6 +1662,12 @@ def train_mha_instances(log: str):
         if m and cur is not None:
             cur["registers"] = int(m.group(1))
     return out
+
+
+def check_no_spills(instances, what):
+    check(len(instances) > 0 and all(
+        x.get("spill_stores", 1) == 0 and x.get("spill_loads", 1) == 0
+        for x in instances), f"{what}: ptxas reports spills (or no report)")
 
 
 def train_mha_plans():
@@ -1611,6 +1845,14 @@ def train_case(dev):
         st, gen = fresh()
         out["profile_rng"] = profile_device(
             lambda bt: trainer.train_step(st, bt, gen), [batch] * 2)
+        # a train step (in-kernel dropout) on a batch already on the card,
+        # under no_host_sync: any operation that makes the host wait raises
+        from case_rg_tpu_torch.device import batch_to_device, no_host_sync
+        on_card = batch_to_device(batch, dev)
+        with no_host_sync():
+            o = trainer.train_step(st, on_card, gen)
+        check(bool(torch.isfinite(o["total"])), "sync check: train step loss")
+        out["sync_check"] = "train step under no_host_sync"
     finally:
         routed("rng", False)
     return out
@@ -1619,7 +1861,7 @@ def train_case(dev):
 def train_attention_phase(dev, gen, instances):
     """The training-attention kernels against their plain versions and
     timed at every site, the mask probes, and no spill in any kernel
-    instance (``instances``: train_mha_instances of the build log)."""
+    instance (``instances``: kernel_instances of the build log)."""
     tmha, tmha_rows = check_and_time_train_mha(dev, gen)
     print("train attention sites: " + json.dumps(tmha_rows), flush=True)
     print("train attention: " + json.dumps(tmha), flush=True)
@@ -1627,10 +1869,7 @@ def train_attention_phase(dev, gen, instances):
         print("train attention probe: " + json.dumps(probe_rng_mask(dev,
                                                                     *site)),
               flush=True)
-    check(len(instances) > 0 and all(
-        x.get("spill_stores", 1) == 0 and x.get("spill_loads", 1) == 0
-        for x in instances), "train attention: ptxas reports spills (or no "
-          "report)")
+    check_no_spills(instances, "train attention")
     return tmha
 
 
@@ -1652,7 +1891,11 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
-    logs = _build.build_all()
+    phase_build = start_stack_phase_build(_build)
+    try:
+        logs = _build.build_all()
+    finally:            # nvcc of the phase build ends here, whatever happens
+        phase_build[0].communicate()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
@@ -1660,14 +1903,22 @@ def main() -> int:
                 print(f"  {name}: {line.split(':', 1)[1].strip()}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    instances = train_mha_instances(logs["train_attention"])
+    instances = kernel_instances(logs["train_attention"])
     print("train attention instances: " + json.dumps(instances), flush=True)
+    serving = {n: kernel_instances(logs[n])
+               for n in ("encoder_attention", "decoder_stack")}
+    print("serving kernel instances: " + json.dumps(serving), flush=True)
+    for n, inst in serving.items():
+        check_no_spills(inst, n)
     print("train attention plans: " + json.dumps(train_mha_plans()),
           flush=True)
     mha, mha_rows = check_and_time_mha(dev, gen)
     print("fused_mha sites: " + json.dumps(mha_rows), flush=True)
     stack = check_and_time_stack(dev)
     print("stack_step: " + json.dumps(stack), flush=True)
+    print("stack_step phases: " + json.dumps(stack_phases(
+        dev, phase_build, [(what, b) for what, b, _ in STACK_SHAPES])),
+        flush=True)
     sq, sq_rows = check_and_time_single_query(dev, gen)
     print("single_query_mha: " + json.dumps(sq_rows), flush=True)
     add_fwd, add_bwd, add_rows, sfu = check_and_time_additive(dev, gen)
@@ -1676,6 +1927,8 @@ def main() -> int:
     cfg, model = serving_model(dev)
     serve = serve_case(dev, cfg, model)
     print("case serving: " + json.dumps(serve), flush=True)
+    print("sync check: " + json.dumps(sync_check_serving(dev, cfg, model)),
+          flush=True)
     reqs, caps = make_requests(np.random.RandomState(3), N_REQUESTS)
     combine = check_and_time_combine(dev, reqs)
     print("combine_copy_mass: " + json.dumps(combine), flush=True)
