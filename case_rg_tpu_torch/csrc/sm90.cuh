@@ -1,8 +1,10 @@
 // Device helpers shared by the port's Hopper (sm_90a) kernels: mma.sync
 // m16n8k16 (bf16 in, f32 accumulate), ldmatrix fragment loads and their
-// addresses, cp.async staging, quad reductions, and the attention kernels'
-// staging, fragment and store helpers. Included by
-// encoder_attention.cu, decoder_stack.cu and train_attention.cu; the build
+// addresses, cp.async staging, quad reductions, the attention kernels'
+// staging, fragment and store helpers, and the host's raising of a
+// kernel's shared-memory limit. Included by encoder_attention.cu,
+// decoder_stack.cu, train_attention.cu, decode_attention.cu and
+// copy_argmax.cu; the build
 // (kernels/_build.py) hashes every header under csrc/ with each source, so
 // an edit here rebuilds them.
 
@@ -18,6 +20,26 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int kPad = 8;              // bf16 of padding per shared-memory row
 constexpr float kNegInf = -1e20f;
+constexpr int kDefaultSmem = 48 * 1024;   // dynamic shared memory, no opt-in
+constexpr int kSmemLimit = 232448;        // a block's most on sm_90
+
+// A kernel may use more than kDefaultSmem of dynamic shared memory only
+// after its limit is raised. This raises it to kSmemLimit once per process
+// and device: `raised`, a static of the caller's for this kernel, keeps a
+// bit a device.
+inline cudaError_t allow_smem(const void* kernel, unsigned long long& raised,
+                              int smem) {
+  if (smem <= kDefaultSmem) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && (raised >> dev & 1ull)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemLimit);
+  if (err == cudaSuccess && dev < 64) raised |= 1ull << dev;
+  return err;
+}
 
 __host__ __device__ __forceinline__ int round_up(int x, int m) {
   return (x + m - 1) / m * m;

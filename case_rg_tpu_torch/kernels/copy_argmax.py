@@ -8,15 +8,17 @@ argmax or the best source id once the copy mass of duplicate ids is
 combined: ``comb[b, j] = sum_l cw[b, l] * [ids[b, l] == ids[b, j]]``.
 
 ``combine_copy_mass`` is the wrapper: on a CUDA tensor it launches the
-hand-written kernel in ``csrc/copy_argmax.cu`` and counts the launch in
-``LAUNCHES``; on a CPU tensor it runs ``combine_copy_mass_plain``, the same
-function in PyTorch. The multi-memory decoder's ``pallas`` argmax mode
+hand-written kernel in ``csrc/copy_argmax.cu`` with the body
+``combine_copy_mass_plan`` picks and counts the launch in ``LAUNCHES``; on
+a CPU tensor it runs ``combine_copy_mass_plain``, the same function in
+PyTorch. The multi-memory decoder's ``pallas`` argmax mode
 reaches it once per decode step through ``candidate_argmax_from_logits``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -25,10 +27,47 @@ from . import _build
 
 LAUNCHES = 0        # kernel launches since the last reset (plain runs excluded)
 _SMEM_LIMIT = 232448   # bytes of shared memory one block may use on sm_90
-# The longest source the kernel takes: a block stages its row's ids and
-# weights, 8 bytes a position, in shared memory. (The JAX package's ceiling,
-# 1280, was the TPU kernel's scoped-VMEM limit; CaSE's source is 1060.)
+# The longest source the kernel takes: its brute body stages a row's ids
+# and weights, 8 bytes a position, in shared memory. (The JAX package's
+# ceiling, 1280, was the TPU kernel's scoped-VMEM limit; CaSE's source is
+# 1060.)
 MAX_FAST_LS = _SMEM_LIMIT // 8
+_MAX_SORT = 4096    # the longest row the sort body holds (512 threads x 8)
+_MIN_SORT = 256     # its smallest sorting width (one warp x 8)
+# Rows up to this long go to the brute body: its Ls^2 compares take less
+# time than the sort's chain of steps there (B=64 on an H100: chip_smoke.py
+# prints both bodies' times by length as "combine_copy_mass by_ls").
+_MAX_BRUTE_SHORT = 384
+_BODIES = {"sort": 0, "brute": 1}     # the C launcher's body codes
+
+
+@functools.lru_cache(maxsize=None)
+def combine_copy_mass_plan(b: int, ls: int, body=None) -> dict:
+    """The kernel's launch for B rows of Ls positions, as its C launcher
+    lays it out (``csrc/copy_argmax.cu``): "sort", one block a row of
+    ``threads`` = n / 8 threads, n = Ls rounded up to a power of two (at
+    least 256), that sorts the row's (id, position) keys and sums the
+    groups, where 384 < Ls <= 4096; else "brute", a block of 128 threads a
+    (row, tile of 128 positions) comparing every pair. ``smem``: bytes of
+    shared memory a block. ``body`` forces one (for comparisons on the
+    card). Raises on a shape the kernel does not take."""
+    if not 1 <= ls <= MAX_FAST_LS or not 1 <= b <= 65535:
+        raise ValueError(f"combine_copy_mass: the kernel takes at most "
+                         f"{MAX_FAST_LS} positions and 65535 rows, got "
+                         f"B={b}, Ls={ls}")
+    if body is None:
+        body = "sort" if _MAX_BRUTE_SHORT < ls <= _MAX_SORT else "brute"
+    if body == "sort":
+        if ls > _MAX_SORT:
+            raise ValueError(f"combine_copy_mass: the sort body holds at "
+                             f"most {_MAX_SORT} positions, got Ls={ls}")
+        n = max(_MIN_SORT, 1 << (ls - 1).bit_length())
+        return {"body": "sort", "n": n, "threads": n // 8, "blocks": b,
+                "smem": 4 * n + 2 * (n + n // 8) * 8 + 32 * 12 + 3 * 32 * 4}
+    if body != "brute":
+        raise ValueError(f"combine_copy_mass: no body {body!r}")
+    return {"body": "brute", "n": ls, "threads": 128,
+            "blocks": b * -(-ls // 128), "smem": 8 * (-(-ls // 4) * 4)}
 
 
 def combine_copy_mass_plain(cw: torch.Tensor,
@@ -68,17 +107,20 @@ def combine_copy_mass(cw: torch.Tensor, src_ids: torch.Tensor) -> torch.Tensor:
         raise ValueError("combine_copy_mass: cw and src_ids must be "
                          "contiguous")
     b, ls = cw.shape
-    if ls > MAX_FAST_LS or b > 65535:
-        raise ValueError(f"combine_copy_mass: the kernel takes at most "
-                         f"{MAX_FAST_LS} positions and 65535 rows, got "
-                         f"B={b}, Ls={ls}")
     out = torch.empty(b, ls, dtype=torch.float32, device=cw.device)
     if out.numel() == 0:
         return out
+    plan = combine_copy_mass_launch(b, ls)
     lib = _lib()
+    code = _BODIES[plan["body"]]
+    if lib.combine_copy_mass_smem_bytes(code, ls) != plan["smem"]:
+        raise RuntimeError("combine_copy_mass: the C launcher and "
+                           "combine_copy_mass_plan count shared memory "
+                           "differently")
     rc = lib.combine_copy_mass(
-        cw.data_ptr(), int(cw.dtype == torch.bfloat16), src_ids.data_ptr(),
-        out.data_ptr(), b, ls, torch.cuda.current_stream(cw.device).cuda_stream)
+        code, cw.data_ptr(), int(cw.dtype == torch.bfloat16),
+        src_ids.data_ptr(), out.data_ptr(), b, ls,
+        torch.cuda.current_stream(cw.device).cuda_stream)
     _build.check(rc, "combine_copy_mass")
     global LAUNCHES
     LAUNCHES += 1
@@ -148,12 +190,20 @@ def candidate_argmax(base: torch.Tensor, cw: torch.Tensor,
         torch.int32)
 
 
+def combine_copy_mass_launch(b: int, ls: int) -> dict:
+    """The plan the wrapper launches (chip_smoke.py and the ``cuda`` tests
+    replace it to time or hold the other body)."""
+    return combine_copy_mass_plan(b, ls)
+
+
 def _lib():
     lib = _build.load("copy_argmax")
     if not getattr(lib, "_argtypes_set", False):
+        lib.combine_copy_mass_smem_bytes.argtypes = [ctypes.c_int] * 2
+        lib.combine_copy_mass_smem_bytes.restype = ctypes.c_int
         lib.combine_copy_mass.argtypes = (
-            [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-            + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+            [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         lib.combine_copy_mass.restype = ctypes.c_int
         lib._argtypes_set = True
     return lib

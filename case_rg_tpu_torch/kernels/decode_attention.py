@@ -2,8 +2,9 @@
 ``case_rg_tpu/kernels/decode_attention.py``).
 
 ``single_query_mha`` is the wrapper: on a CUDA tensor it launches the
-hand-written kernel in ``csrc/decode_attention.cu`` (bf16 only) and counts
-the launch in ``LAUNCHES``; on a CPU tensor it runs
+hand-written kernel in ``csrc/decode_attention.cu`` (bf16 only) in the
+layout ``single_query_mha_plan`` picks and counts the launch in
+``LAUNCHES``; on a CPU tensor it runs
 ``single_query_mha_plain``, the same function in PyTorch. K and V may be
 strided views (the two halves of a packed [B, T, 2E] K|V cache): the kernel
 reads them in place. The decode step of every unfused decoder stack
@@ -15,6 +16,7 @@ memory).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -24,6 +26,40 @@ from . import _build
 
 LAUNCHES = 0        # kernel launches since the last reset (plain runs excluded)
 _SMEM_LIMIT = 232448   # bytes of shared memory one block may use on sm_90
+_WIDTHS = (8, 16, 32, 64, 128, 256)   # head widths the kernel takes
+_WARP_KEYS = 8      # keys a lane holds in the warp layout
+_LAYOUTS = {"warp": 0, "block": 1}    # the C launcher's layout codes
+
+
+@functools.lru_cache(maxsize=None)
+def single_query_mha_plan(b: int, l: int, d: int, layout=None) -> dict:
+    """The kernel's launch for B rows of L keys at head width d, as its C
+    launcher lays it out (``csrc/decode_attention.cu``): "warp", one warp a
+    (row, head), four a block of 128 threads, no shared memory, where a
+    warp's lanes hold every key (``_WARP_KEYS`` keys a lane, 256 / d keys a
+    pass: L <= 64 at d = 32); else "block", a block of 128 threads a (row,
+    head) with the row's f32 scores in ``smem`` bytes of shared memory.
+    ``layout`` forces one (for comparisons on the card). Raises on a shape
+    the kernel does not take."""
+    if d not in _WIDTHS or l < 1 or not 1 <= b <= 2 ** 31 - 1:
+        raise ValueError(f"single_query_mha: the kernel takes head widths "
+                         f"{_WIDTHS}, L >= 1 and 1 <= B < 2^31; got d={d}, "
+                         f"L={l}, B={b}")
+    warp_keys = _WARP_KEYS * 256 // d
+    if layout is None:
+        layout = "warp" if l <= warp_keys else "block"
+    if layout == "warp":
+        if l > warp_keys:
+            raise ValueError(f"single_query_mha: the warp layout holds at "
+                             f"most {warp_keys} keys at d={d}, got L={l}")
+        return {"layout": "warp", "threads": 128, "smem": 0}
+    if layout != "block":
+        raise ValueError(f"single_query_mha: no layout {layout!r}")
+    smem = 4 * (5 * d + l + 4)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"single_query_mha: L={l} needs {smem} bytes of "
+                         "shared memory, more than a block has")
+    return {"layout": "block", "threads": 128, "smem": smem}
 
 
 def _scale(d: int, dtype) -> float:
@@ -110,19 +146,20 @@ def single_query_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = k.shape[1]
     if keep is not None:
         keep = keep.contiguous()
-    lib = _lib()
-    if not lib.single_query_mha_supports(e, num_heads) or b > 2 ** 31 - 1:
-        raise ValueError(f"single_query_mha: the kernel takes head widths "
-                         f"8, 16, 32, 64, 128 or 256; got E={e}, "
-                         f"H={num_heads}")
+    if e % num_heads or not 1 <= num_heads <= 65535:
+        raise ValueError(f"single_query_mha: E={e} does not split into "
+                         f"H={num_heads} heads")
     d = e // num_heads
-    smem = lib.single_query_mha_smem_bytes(l, d)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"single_query_mha: L={l} needs {smem} bytes of "
-                         "shared memory, more than a block has")
+    plan = single_query_mha_launch(b, l, d)
+    lib = _lib()
+    code = _LAYOUTS[plan["layout"]]
+    if lib.single_query_mha_smem_bytes(code, l, d) != plan["smem"]:
+        raise RuntimeError("single_query_mha: the C launcher and "
+                           "single_query_mha_plan count shared memory "
+                           "differently")
     out = torch.empty(b, 1, e, dtype=q.dtype, device=q.device)
     rc = lib.single_query_mha_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         keep.data_ptr() if keep is not None else None, out.data_ptr(),
         b, l, e, num_heads, q.stride(0), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), _scale(d, torch.bfloat16),
@@ -133,15 +170,19 @@ def single_query_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def single_query_mha_launch(b: int, l: int, d: int) -> dict:
+    """The plan the wrapper launches (chip_smoke.py and the ``cuda`` tests
+    replace it to time or hold the other layout)."""
+    return single_query_mha_plan(b, l, d)
+
+
 def _lib():
     lib = _build.load("decode_attention")
     if not getattr(lib, "_argtypes_set", False):
-        lib.single_query_mha_supports.argtypes = [ctypes.c_int] * 2
-        lib.single_query_mha_supports.restype = ctypes.c_int
-        lib.single_query_mha_smem_bytes.argtypes = [ctypes.c_int] * 2
+        lib.single_query_mha_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.single_query_mha_smem_bytes.restype = ctypes.c_int
         lib.single_query_mha_bf16.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+            [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
             + [ctypes.c_longlong] * 5 + [ctypes.c_float, ctypes.c_void_p])
         lib.single_query_mha_bf16.restype = ctypes.c_int
         lib._argtypes_set = True

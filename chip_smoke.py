@@ -9,14 +9,18 @@ In order it
      case_rg_tpu_torch/csrc (nvcc, sm_90a, one process per source, all at
      once) and prints the build time and each kernel's registers and shared
      memory (ptxas -v), then each serving kernel instance's registers and
-     spills ("serving kernel instances"; a spill fails the run);
+     spills (fused_mha, stack_step, single_query_mha, combine_copy_mass:
+     "serving kernel instances"; a spill fails the run);
   2. holds each kernel against its plain PyTorch version on the card, in
      bf16, at the shapes CaSE serving gives it (tolerances below):
      fused_mha (the four sites, two launches equal bit for bit),
      stack_step (at B=64, a cluster of two blocks a row, and at the beam's
      256 rows, one block a row; self-fed steps, per-row t, a repeat equal
      bit for bit), single_query_mha (the query memory, the packed
-     self-attention history, beam rows, and a 1000-key check) and
+     self-attention history and beam rows in the warp layout, a 1000-key
+     check in the block layout, each plan's layout asserted, the other
+     layout held too where it takes the shape, two launches equal bit for
+     bit) and
      additive_scores (a decode step and teacher forcing over each memory,
      forward, and backward at teacher forcing);
   3. times each kernel, its plain version and, where one PyTorch call
@@ -28,7 +32,10 @@ In order it
      stack_step by device time per predict (B=64) and per beam batch (B x
      4 rows), in the plan's layout and with the other forced, and 40 steps
      at other batches in both, with the plans and the card's max active
-     clusters;
+     clusters; single_query_mha by device time at each shape in both
+     layouts, with clock64 marks of the warp layout's phases (an extra
+     build of decode_attention.cu whose `// phase` lines become marks) and
+     the floor under any launch (a one-thread kernel);
   4. builds CaSE at the serving widths (V=30522, E=256, H=8, 3 encoder and
      2x4 decoder layers, bf16 weights drawn from a seed, with noisy biases
      and LayerNorm gains) and serves B=64 batches (query 60, pool 10x100,
@@ -47,9 +54,13 @@ In order it
   5. holds combine_copy_mass, the copy-argmax combine, against its plain
      version at the decode's shape (B=64, source 60 + 10x100 = 1060, bf16
      copy mass, ids drawn Zipf-like so they repeat as text does, padding as
-     served), an odd shape and one of 3000 positions, and times it per
-     launch beside its plain version and the dense scatter_add_ + gather
-     pair;
+     served), an odd shape and one of 3000 positions, in its planned body
+     (asserted) and in the other; two launches equal bit for bit and every
+     group's members equal bit for bit; and times both bodies per launch
+     (device time) beside its plain version and the dense scatter_add_ +
+     gather pair, the sort body's phases (clock64 marks, as for
+     single_query_mha), and both bodies over a range of row lengths at
+     B=64;
   6. serves two B=64 batches in each argmax mode (dense, mxu, pallas), and
      in pallas mode with the combine's wrapper swapped for its plain
      version (answers gated at stated agreements);
@@ -183,6 +194,9 @@ TRAIN_STEPS, TRAIN_WARMUP = 10, 2
 BEAM_WIDTH = 4
 SQ_SHAPES = ((B, P * LP, False), (B, LQ, False), (B, T_ANS, True),
              (B * BEAM_WIDTH, LQ, False))
+# the layout single_query_mha_plan must pick at each L of SQ_SHAPES: a warp a
+# (row, head) at the decode's lengths, a block a (row, head) at 1000 keys
+SQ_LAYOUTS = {P * LP: "block", LQ: "warp", T_ANS: "warp"}
 # additive_scores (T, L): a decode step over each memory, teacher forcing
 # over each memory
 ADD_DECODE = ((1, P * LP), (1, LQ))
@@ -262,6 +276,29 @@ def sfu_per_s() -> float:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+class other_plan:
+    """Within ``with``, ``module.<name>`` (a wrapper's launch plan) is
+    ``plan``: the wrapper launches the layout or body it gives. ``fits``
+    says whether ``plan`` takes a shape at all."""
+
+    def __init__(self, module, name, plan):
+        self.module, self.name, self.plan = module, name, plan
+
+    def fits(self, *shape) -> bool:
+        try:
+            self.plan(*shape)
+            return True
+        except ValueError:
+            return False
+
+    def __enter__(self):
+        self.saved = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.plan)
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.saved)
 
 
 # ---- phase 2/3: fused_mha ----
@@ -387,6 +424,75 @@ def start_stack_phase_build(_build):
          lib, os.path.join(d, "decoder_stack_phases.cu")],
         stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
     return proc, lib, names
+
+
+def start_phase_build(_build, name):
+    """Start nvcc on a copy of csrc/<name>.cu whose every `// phase <mark>`
+    line becomes a clock64 mark by thread 0 of block 0 into a device array,
+    which the added read_phases copies out. Returns (the nvcc process, the
+    library's path, the mark names in the source's order); the caller waits
+    for the process."""
+    import re
+    phase = re.compile(r"\s*// phase (.+)")
+    src = os.path.join(_build.CSRC, f"{name}.cu")
+    out, names = [], []
+    for ln in open(src).read().splitlines():
+        m = phase.fullmatch(ln)
+        if m:
+            out.append(f"if (threadIdx.x == 0 && blockIdx.x == 0) "
+                       f"g_phase[{len(names)}] = clock64();")
+            names.append(m.group(1))
+        else:
+            out.append(ln)
+            if ln == "namespace {" and out.count(ln) == 1:
+                out.append("__device__ long long g_phase[32];")
+    out += ['extern "C" int read_phases(long long* dst, int count) {',
+            "  return static_cast<int>(cudaMemcpyFromSymbol(",
+            "      dst, g_phase, sizeof(long long) * count));", "}"]
+    d = os.path.join(_build.BUILD_ROOT, f"{name}_phases")
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, f"{name}_phases.cu"), "w") as f:
+        f.write("\n".join(out) + "\n")
+    lib = os.path.join(d, f"lib{name}_phases.so")
+    proc = subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+         lib, os.path.join(d, f"{name}_phases.cu")],
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    return proc, lib, names
+
+
+def kernel_phases(build, module, functions, run):
+    """One launch's clock64 marks through the instrumented build of
+    start_phase_build: ``run()`` calls the wrapper of ``module``, whose
+    ``_lib`` is swapped for the build (``functions``: its C functions).
+    The marks in the order they were taken, as µs between each and the
+    one before at the card's maximum SM clock, and the launch's µs from
+    the first mark to the last (thread 0 of block 0)."""
+    import ctypes
+    from case_rg_tpu_torch.kernels import _build
+    proc, path, names = build
+    check(proc.returncode == 0, f"{module.__name__} phases: nvcc failed")
+    lib = ctypes.CDLL(path)
+    kernel_lib = module._lib()
+    for fn in functions:
+        getattr(lib, fn).argtypes = getattr(kernel_lib, fn).argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.read_phases.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    plain_lib = module._lib
+    module._lib = lambda: lib
+    try:
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+    finally:
+        module._lib = plain_lib
+    marks = (ctypes.c_longlong * len(names))()
+    _build.check(lib.read_phases(marks, len(names)), "read_phases")
+    order = sorted(zip(list(marks), names))
+    mhz = max_sm_mhz()
+    return {"us": {nm: (c - p) / mhz for (p, _), (c, nm) in
+                   zip(order[:-1], order[1:])},
+            "total_us": (order[-1][0] - order[0][0]) / mhz}
 
 
 def stack_phases(dev, build, shapes):
@@ -567,11 +673,14 @@ def check_and_time_stack(dev):
 
 # ---- phase 2/3: single_query_mha and additive_scores ----
 
-def check_and_time_single_query(dev, gen):
+def check_and_time_single_query(dev, gen, phase_build):
     """single_query_mha against its plain version at SQ_SHAPES (bf16; row 0
     with no valid key; keys valid up to a length drawn per row, as over a
     decode; the history's q, K and V strided views of packed projections),
-    with device times of the kernel, its plain
+    in the layout its plan picks (asserted: SQ_LAYOUTS) and, where the shape
+    fits it, the other one; two launches equal bit for bit; the warp
+    layout's clock64 marks (``kernel_phases``) and the floor under any
+    launch; with device times of the kernel, the other layout, its plain
     version and scaled_dot_product_attention (a yardstick of time only: it
     gives NaN on a row with no valid key, so its row 0 keeps key 0), and the
     byte bound of each shape. The total is per B=64 predict: 40 steps of 4
@@ -591,19 +700,39 @@ def check_and_time_single_query(dev, gen):
         lengths = torch.randint(1, l + 1, (r,), generator=gen, device=dev)
         keep = torch.arange(l, device=dev)[None, :] < lengths[:, None]
         keep[0] = False
+        d = E // H
+        plan = da.single_query_mha_plan(r, l, d)["layout"]
+        check(plan == SQ_LAYOUTS[l], f"single_query_mha {(r, l, packed)}: "
+              f"planned {plan}, not {SQ_LAYOUTS[l]}")
         out = da.single_query_mha(q, k, v, keep, H)
+        again = da.single_query_mha(q, k, v, keep, H)
         ref = da.single_query_mha_plain(q, k, v, keep, H)
+        other = "block" if plan == "warp" else "warp"
+        forced = other_plan(da, "single_query_mha_launch",
+                            lambda b, l_, d_: da.single_query_mha_plan(
+                                b, l_, d_, layout=other))
+        with forced:
+            out_other = (da.single_query_mha(q, k, v, keep, H)
+                         if forced.fits(r, l, d) else None)
         torch.cuda.synchronize()
+        check(torch.equal(out, again), f"single_query_mha {(r, l, packed)}: "
+              "two launches differ")
         ulps, err = bf16_ulps(out, ref)
         check(ulps <= SQ_ULPS, f"single_query_mha {(r, l, packed)}: kernel "
               f"vs plain {ulps} bf16 ulps > {SQ_ULPS}")
         check(bool((out[0] == 0).all()),
               "single_query_mha: a row with no valid key is not 0")
-        d = E // H
+        if out_other is not None:
+            o_ulps = bf16_ulps(out_other, ref)[0]
+            check(o_ulps <= SQ_ULPS, f"single_query_mha {(r, l, packed)}: "
+                  f"{other} layout vs plain {o_ulps} bf16 ulps > {SQ_ULPS}")
         split = lambda x: x.view(r, -1, H, d).transpose(1, 2)
         lib_keep = keep.clone()
         lib_keep[:, 0] = True
         ms = device_ms(lambda: da.single_query_mha(q, k, v, keep, H))
+        with forced:
+            other_ms = (None if out_other is None else device_ms(
+                lambda: da.single_query_mha(q, k, v, keep, H)))
         plain = device_ms(lambda: da.single_query_mha_plain(q, k, v, keep, H),
                           iters=20)
         lib = device_ms(lambda: F.scaled_dot_product_attention(
@@ -613,13 +742,24 @@ def check_and_time_single_query(dev, gen):
         # q, keep and out, and K and V rows of the valid keys
         n_bytes = nbytes(q, keep, out) + valid * 2 * E * 2
         b_ms, b_by = bound_ms(n_bytes, 4 * valid * E)
-        rows.append({"rows": r, "L": l, "packed": packed, "max_ulps": ulps,
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
+        rows.append({"rows": r, "L": l, "packed": packed, "layout": plan,
+                     "max_ulps": ulps, "max_abs_err": err, "ms": ms,
+                     f"{other}_ms": other_ms, "plain_ms": plain,
                      "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
+        if plan == "warp":     # marks of (row 0, head 0): give it keys
+            keep_p = keep.clone()
+            keep_p[0] = keep[1]
+            rows[-1]["phases"] = kernel_phases(
+                phase_build, da, ("single_query_mha_smem_bytes",
+                                  "single_query_mha_bf16"),
+                lambda: da.single_query_mha(q, k, v, keep_p, H))
     per_site = DEC_LAYERS * T_ANS          # launches of each site a predict
     sites = [x for x in rows if (x["rows"], x["L"]) in ((B, LQ), (B, T_ANS))]
     total = {k: per_site * sum(x[k] for x in sites)
-             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+             for k in ("ms", "block_ms", "plain_ms", "library_ms",
+                       "bound_ms")}
+    # the floor under any launch: a one-thread kernel that spins a cycle
+    total.update(launch_floor_ms=device_ms(lambda: torch.cuda._sleep(1)))
     total.update(bound_by="bytes", launches_per_predict=2 * per_site,
                  max_abs_err=max(x["max_abs_err"] for x in rows),
                  max_ulps=max(x["max_ulps"] for x in rows))
@@ -1015,6 +1155,12 @@ LS = LQ + P * LP                 # copy source of a row: query + pool = 1060
 # combine_copy_mass: the decode's shape, an odd one, and one longer than the
 # JAX package's MAX_FAST_LS (1280)
 COMBINE_SHAPES = ((B, LS), (5, 77), (8, 3000))
+# the body combine_copy_mass_plan must pick at each Ls of COMBINE_SHAPES:
+# the brute body's compares at short rows, the sort at the decode's 1060
+COMBINE_BODIES = {LS: "sort", 77: "brute", 3000: "sort"}
+# lengths at which both bodies are timed at B=64 (a pool of 5 passages:
+# 560 positions)
+COMBINE_SWEEP = (77, 256, 384, 560, LS, 2048)
 # Per element, as a share of the row's total copy mass: the kernel and its
 # plain version add the same f32 values in another order.
 COMBINE_TOL = 1e-5
@@ -1062,12 +1208,18 @@ def take(arrays, idx):
     return {k: v[idx] for k, v in arrays.items()}
 
 
-def check_and_time_combine(dev, reqs):
+def check_and_time_combine(dev, reqs, phase_build):
     """combine_copy_mass against its plain version at COMBINE_SHAPES (bf16
-    copy mass, as the decode gives it): per element within COMBINE_TOL of
-    the row's mass, and the argmax of ``b_at + comb`` picks the same id on
-    every row. Times per launch: the kernel, its plain version, and the
-    dense scatter_add_ + gather pair as yardstick."""
+    copy mass, as the decode gives it), in the body its plan picks
+    (asserted: COMBINE_BODIES) and in the other: per element within
+    COMBINE_TOL of the row's mass, and the argmax of ``b_at + comb`` picks
+    the same id on every row; two launches equal bit for bit, and every
+    member of a group equal to its first member bit for bit. Times per
+    launch: the kernel, the other body, its plain version, and the dense
+    scatter_add_ + gather pair as yardstick, and the sort body's clock64
+    marks (``kernel_phases``). Then both bodies' times at
+    B=64 over COMBINE_SWEEP lengths ("by_ls", where the plan's switch
+    between them is read)."""
     from case_rg_tpu_torch.kernels import copy_argmax as ca
     rng = np.random.RandomState(5)
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -1086,13 +1238,37 @@ def check_and_time_combine(dev, reqs):
         ids_t = torch.from_numpy(ids).to(dev)
         cw_t = torch.from_numpy(cw.astype(np.float32)).to(dev).to(
             torch.bfloat16)
+        body = ca.combine_copy_mass_plan(b, ls)["body"]
+        check(body == COMBINE_BODIES[ls], f"combine_copy_mass {(b, ls)}: "
+              f"planned {body}, not {COMBINE_BODIES[ls]}")
         out = ca.combine_copy_mass(cw_t, ids_t)
+        again = ca.combine_copy_mass(cw_t, ids_t)
         ref = ca.combine_copy_mass_plain(cw_t, ids_t)
+        other_body = "brute" if body == "sort" else "sort"
+        other = other_plan(ca, "combine_copy_mass_launch",
+                           lambda b_, l_: ca.combine_copy_mass_plan(
+                               b_, l_, body=other_body))
+        with other:
+            out_other = ca.combine_copy_mass(cw_t, ids_t)
         torch.cuda.synchronize()
+        check(torch.equal(out, again), f"combine_copy_mass {(b, ls)}: two "
+              "launches differ")
+        # every member of a group carries its first member's value, bit for
+        # bit (first: the smallest position of each id, per row)
+        pos = torch.arange(ls, device=dev).expand(b, ls)
+        first = torch.full((b, int(ids_t.max()) + 1), ls, device=dev,
+                           dtype=torch.long).scatter_reduce(
+            1, ids_t.long(), pos, "amin")
+        check(torch.equal(out, out.gather(1, first.gather(1, ids_t.long()))),
+              f"combine_copy_mass {(b, ls)}: a group's members differ")
         mass = cw_t.float().sum(-1, keepdim=True)
         rel = ((out - ref).abs() / mass).max().item()
         check(rel <= COMBINE_TOL, f"combine_copy_mass {(b, ls)}: kernel vs "
               f"plain {rel} of the row's mass > {COMBINE_TOL}")
+        rel_other = ((out_other - ref).abs() / mass).max().item()
+        check(rel_other <= COMBINE_TOL, f"combine_copy_mass {(b, ls)}: "
+              f"{other_body} body vs plain {rel_other} of the row's mass > "
+              f"{COMBINE_TOL}")
         # generator mass at each id (the same for every member of a group)
         b_at = (0.05 * torch.rand(b, V, generator=gen, device=dev)).gather(
             1, ids_t.long())
@@ -1105,6 +1281,8 @@ def check_and_time_combine(dev, reqs):
         # device time: a launch takes less than the host needs to issue the
         # next one, so back-to-back launches timed by events read the host
         ms = device_ms(kernel)
+        with other:
+            other_ms = device_ms(kernel)
         issue_ms = time_ms(kernel, iters=200)
         plain = device_ms(lambda: ca.combine_copy_mass_plain(cw_t, ids_t),
                           iters=20)
@@ -1116,13 +1294,39 @@ def check_and_time_combine(dev, reqs):
         # (one operation each per position), all SIMT
         n_ops = b * ls * (int(np.ceil(np.log2(ls))) + 2)
         b_ms, b_by = bound_ms(nbytes(cw_t, ids_t, out), n_ops, PEAK_F32_FLOPS)
-        rows.append({"B": b, "Ls": ls, "max_rel_err": rel,
+        rows.append({"B": b, "Ls": ls, "body": body, "max_rel_err": rel,
+                     f"{other_body}_rel_err": rel_other,
+                     f"{other_body}_ms": other_ms,
                      "max_abs_err": (out - ref).abs().max().item(),
                      "largest_group": int(max(g.max() for g in groups)),
                      "mean_group": float(np.mean([g.mean() for g in groups])),
                      "ms": ms, "issue_ms": issue_ms, "plain_ms": plain,
                      "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
-    return rows
+        if body == "sort":
+            rows[-1]["phases"] = kernel_phases(
+                phase_build, ca, ("combine_copy_mass_smem_bytes",
+                                  "combine_copy_mass"), kernel)
+    by_ls = []
+    for ls in COMBINE_SWEEP:
+        ids = np.zeros((B, ls), np.int32)
+        for r in range(B):
+            n = rng.randint(ls // 2, ls + 1)
+            ids[r, :n] = zipf_ids(rng, n)
+        cw = rng.rand(B, ls) * (ids != 0)
+        cw_t = torch.from_numpy((cw / cw.sum(-1, keepdims=True)).astype(
+            np.float32)).to(dev).to(torch.bfloat16)
+        ids_t = torch.from_numpy(ids).to(dev)
+        row = {"Ls": ls, "plan": ca.combine_copy_mass_plan(B, ls)["body"]}
+        for body in ("sort", "brute"):
+            forced = other_plan(ca, "combine_copy_mass_launch",
+                                lambda b_, l_: ca.combine_copy_mass_plan(
+                                    b_, l_, body=body))
+            if forced.fits(B, ls):
+                with forced:
+                    row[f"{body}_ms"] = device_ms(
+                        lambda: ca.combine_copy_mass(cw_t, ids_t))
+        by_ls.append(row)
+    return rows, by_ls
 
 
 def serve_argmax_modes(dev, cfg, model, reqs):
@@ -1892,10 +2096,13 @@ def main() -> int:
 
     t0 = time.perf_counter()
     phase_build = start_stack_phase_build(_build)
+    phase_builds = {n: start_phase_build(_build, n)
+                    for n in ("decode_attention", "copy_argmax")}
     try:
         logs = _build.build_all()
-    finally:            # nvcc of the phase build ends here, whatever happens
-        phase_build[0].communicate()
+    finally:            # nvcc of the phase builds ends here, whatever happens
+        for proc, _, _ in (phase_build, *phase_builds.values()):
+            proc.communicate()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
@@ -1906,7 +2113,8 @@ def main() -> int:
     instances = kernel_instances(logs["train_attention"])
     print("train attention instances: " + json.dumps(instances), flush=True)
     serving = {n: kernel_instances(logs[n])
-               for n in ("encoder_attention", "decoder_stack")}
+               for n in ("encoder_attention", "decoder_stack",
+                         "decode_attention", "copy_argmax")}
     print("serving kernel instances: " + json.dumps(serving), flush=True)
     for n, inst in serving.items():
         check_no_spills(inst, n)
@@ -1919,8 +2127,10 @@ def main() -> int:
     print("stack_step phases: " + json.dumps(stack_phases(
         dev, phase_build, [(what, b) for what, b, _ in STACK_SHAPES])),
         flush=True)
-    sq, sq_rows = check_and_time_single_query(dev, gen)
+    sq, sq_rows = check_and_time_single_query(
+        dev, gen, phase_builds["decode_attention"])
     print("single_query_mha: " + json.dumps(sq_rows), flush=True)
+    print("single_query_mha per predict: " + json.dumps(sq), flush=True)
     add_fwd, add_bwd, add_rows, sfu = check_and_time_additive(dev, gen)
     print(f"additive_scores (tanh bound at {sfu:.4g}/s): "
           + json.dumps(add_rows), flush=True)
@@ -1930,8 +2140,10 @@ def main() -> int:
     print("sync check: " + json.dumps(sync_check_serving(dev, cfg, model)),
           flush=True)
     reqs, caps = make_requests(np.random.RandomState(3), N_REQUESTS)
-    combine = check_and_time_combine(dev, reqs)
+    combine, combine_by_ls = check_and_time_combine(
+        dev, reqs, phase_builds["copy_argmax"])
     print("combine_copy_mass: " + json.dumps(combine), flush=True)
+    print("combine_copy_mass by_ls: " + json.dumps(combine_by_ls), flush=True)
     modes = serve_argmax_modes(dev, cfg, model, reqs)
     print("argmax modes: " + json.dumps(modes), flush=True)
     cont = serve_continuous(dev, cfg, model, reqs, caps)

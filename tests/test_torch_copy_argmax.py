@@ -158,6 +158,52 @@ def test_resolve_fast_argmax_modes_match_jax(jca):
         MultiMemoryDecoder._resolve_fast_argmax("bogus")
 
 
+# ---- the kernel's launch plan (pure Python) ----
+
+SMEM_LIMIT = 232448       # bytes of shared memory a block may use on sm_90
+
+
+@pytest.mark.parametrize("ls,body,n", [
+    (77, "brute", 77), (384, "brute", 384), (385, "sort", 512),
+    (1060, "sort", 2048), (3000, "sort", 4096), (4096, "sort", 4096),
+    (4097, "brute", 4097), (tca.MAX_FAST_LS, "brute", tca.MAX_FAST_LS)])
+def test_combine_copy_mass_plan(ls, body, n):
+    """The sort body (a block a row, n / 8 threads, n = Ls rounded up to a
+    power of two, at least 256) from 385 to 4096 positions, the brute body
+    (a block a row and tile of 128 positions) on shorter and longer rows;
+    shared memory within a block's."""
+    for b in (1, 64, 65535):
+        plan = tca.combine_copy_mass_plan(b, ls)
+        assert (plan["body"], plan["n"]) == (body, n)
+        if body == "sort":
+            assert plan["threads"] == n // 8 and plan["blocks"] == b
+            assert plan["smem"] == 22 * n + 768
+        else:
+            assert plan["threads"] == 128
+            assert plan["blocks"] == b * -(-ls // 128)
+            assert plan["smem"] == 8 * (-(-ls // 4) * 4)
+        assert plan["smem"] <= SMEM_LIMIT
+
+
+def test_combine_copy_mass_plan_takes_every_shape_the_wrapper_takes():
+    """Every row length up to MAX_FAST_LS and every batch up to 65535 is
+    planned onto a kernel body (no plain fallback); the brute body takes
+    every length, the sort body every length to 4096 and none past it;
+    beyond the wrapper's limits the plan refuses."""
+    for ls in list(range(1, 300)) + [1023, 1024, 1025, 2049, 4095, 4096,
+                                     4097, 10000, tca.MAX_FAST_LS]:
+        plan = tca.combine_copy_mass_plan(65535, ls)
+        assert plan["smem"] <= SMEM_LIMIT
+        for body in ("brute",) + (("sort",) if ls <= 4096 else ()):
+            assert tca.combine_copy_mass_plan(1, ls, body=body)["smem"] \
+                <= SMEM_LIMIT
+    for b, ls in ((1, tca.MAX_FAST_LS + 1), (65536, 10), (0, 10), (1, 0)):
+        with pytest.raises(ValueError):
+            tca.combine_copy_mass_plan(b, ls)
+    with pytest.raises(ValueError):
+        tca.combine_copy_mass_plan(1, 4097, body="sort")
+
+
 # ---- on the card ----
 
 @pytest.mark.cuda
@@ -190,3 +236,73 @@ def test_combine_kernel_refuses_what_it_does_not_take(cuda):
         tca.combine_copy_mass(cw, ids[:, :9])
     with pytest.raises(ValueError):
         tca.combine_copy_mass(cw.t(), ids.t())
+
+
+def _zipf_row(rng, n, ranks=1000, vocab=30522):
+    """n ids as text repeats them: Zipf ranks (exponent 1) over ``ranks``
+    random vocabulary ids."""
+    p = 1.0 / np.arange(1, ranks + 1)
+    words = rng.choice(np.arange(4, vocab), ranks, replace=False)
+    return words[rng.choice(ranks, n, p=p / p.sum())].astype(np.int32)
+
+
+def _combine_card(b, ls, kind, seed, cuda):
+    """bf16 copy mass and int32 ids on the card: Zipf ids with a padded
+    tail of id 0 and weight 0 ("zipf"), one id ("equal"), every id
+    distinct ("distinct"), a 500-long group of id 0 that carries weight
+    ("pad500"), or Zipf ids spread up to 2^31 ("bigids": too large for the
+    sort's 32-bit keys)."""
+    rng = np.random.RandomState(seed)
+    ids = np.zeros((b, ls), np.int32)
+    for r in range(b):
+        n = rng.randint(ls // 2, ls + 1)
+        ids[r, :n] = _zipf_row(rng, n)
+    if kind == "equal":
+        ids[:] = 7
+    if kind == "distinct":
+        ids = np.tile(np.arange(ls, dtype=np.int32) * 3 + 1, (b, 1))
+    if kind == "bigids":
+        ids = (ids.astype(np.int64) * 70001 % 2147483000).astype(np.int32)
+    cw = rng.rand(b, ls) * (ids != 0)
+    if kind == "pad500":
+        ids[:, 100:600] = 0
+        cw[:, 100:600] = rng.rand(b, 500)
+    cw = cw / cw.sum(-1, keepdims=True) * rng.uniform(0.2, 1.0, (b, 1))
+    cw = torch.from_numpy(cw.astype(np.float32)).to(cuda)
+    return cw.to(torch.bfloat16), torch.from_numpy(ids).to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,ls,kind,body", [
+    (4, 1000, "equal", "sort"), (4, 1000, "distinct", "sort"),
+    (4, 1060, "pad500", "sort"), (4, 1060, "bigids", "sort"),
+    (64, 1060, "zipf", "sort"),
+    (5, 77, "zipf", "brute"), (8, 3000, "zipf", "sort"),
+    (2, 4097, "zipf", "brute"), (1, tca.MAX_FAST_LS, "zipf", "brute")])
+def test_combine_bodies_match_plain(cuda, monkeypatch, b, ls, kind, body):
+    """The planned body, and the other where it takes the row: within 1e-5
+    of the row's mass of the plain version, every member of a group equal
+    to the group's first member bit for bit, two launches equal bit for
+    bit."""
+    cw, ids = _combine_card(b, ls, kind, ls, cuda)
+    assert tca.combine_copy_mass_plan(b, ls)["body"] == body
+    ref = tca.combine_copy_mass_plain(cw, ids)
+    mass = cw.float().sum(-1, keepdim=True)
+    first = torch.empty(b, ls, dtype=torch.long, device=cuda)
+    pos = torch.arange(ls, device=cuda)
+    for r in range(b):             # each position's group's first position
+        _, inv = torch.unique(ids[r], return_inverse=True)
+        first[r] = torch.full((int(inv.max()) + 1,), ls, device=cuda
+                              ).scatter_reduce(0, inv, pos, "amin")[inv]
+    for forced in ("sort", "brute") if ls <= 4096 else ("brute",):
+        monkeypatch.setattr(tca, "combine_copy_mass_launch",
+                            lambda b_, l_: tca.combine_copy_mass_plan(
+                                b_, l_, body=forced))
+        before = tca.LAUNCHES
+        got = tca.combine_copy_mass(cw, ids)
+        again = tca.combine_copy_mass(cw, ids)
+        torch.cuda.synchronize()
+        assert tca.LAUNCHES == before + 2
+        assert torch.equal(got, again)
+        assert bool(((got - ref).abs() <= 1e-5 * mass).all())
+        assert torch.equal(got, got.gather(1, first))

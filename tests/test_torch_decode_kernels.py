@@ -221,6 +221,46 @@ def test_plain_decode_attention_moves_nothing_from_the_host():
     assert not mode.seen, mode.seen
 
 
+# ---- the kernel's launch plan (pure Python) ----
+
+SMEM_LIMIT = 232448       # bytes of shared memory a block may use on sm_90
+
+
+@pytest.mark.parametrize("d", [32, 64, 8])
+@pytest.mark.parametrize("l", [1, 32, 33, 40, 60, 64, 65, 600, 1000])
+def test_single_query_mha_plan(l, d):
+    """A warp a (row, head) while a warp's lanes hold every key (8 keys a
+    lane, 256 / d keys a pass: 64 at d = 32, so every decode shape), else a
+    block a (row, head) with the row's f32 scores in shared memory; the
+    layout does not depend on the batch."""
+    for b in (64, 256):
+        plan = tda.single_query_mha_plan(b, l, d)
+        warp = l <= 8 * 256 // d
+        assert plan["layout"] == ("warp" if warp else "block")
+        assert plan["smem"] == (0 if warp else 4 * (5 * d + l + 4))
+        assert plan["smem"] <= SMEM_LIMIT and plan["threads"] == 128
+
+
+def test_single_query_mha_plan_takes_every_shape_the_wrapper_takes():
+    """Every head width the wrapper takes, up to the longest L a block's
+    shared memory holds, is planned onto a kernel (no plain fallback);
+    longer rows, other widths and a forced layout that cannot hold the
+    keys are refused."""
+    for d in (8, 16, 32, 64, 128, 256):
+        longest = SMEM_LIMIT // 4 - 5 * d - 4
+        for l in (1, 8 * 256 // d, 8 * 256 // d + 1, 1000, longest):
+            assert tda.single_query_mha_plan(1, l, d)["smem"] <= SMEM_LIMIT
+            assert tda.single_query_mha_plan(
+                1, l, d, layout="block")["layout"] == "block"
+        with pytest.raises(ValueError):
+            tda.single_query_mha_plan(1, longest + 1, d)
+        with pytest.raises(ValueError):
+            tda.single_query_mha_plan(1, 8 * 256 // d + 1, d, layout="warp")
+    for d in (4, 24, 48, 512):
+        with pytest.raises(ValueError):
+            tda.single_query_mha_plan(1, 60, d)
+
+
 # ---- on the card: each CUDA kernel against its plain version (bf16) ----
 
 @pytest.mark.cuda
@@ -267,3 +307,63 @@ def test_additive_scores_kernels_match_plain(cuda, b, t, l, h):
         _bf16_close(got, want, ADD_BWD_ULPS)
     again = torch.autograd.grad(taa.additive_scores(*xs), xs, g)
     assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+
+
+def _sq_card(b, l, e, seed, cuda, packed=False, masked=(1,)):
+    """bf16 inputs on the card: q (a third of a packed projection where
+    ``packed``), K and V (the halves of a packed cache where ``packed``),
+    keep with random lengths and the rows ``masked`` all masked."""
+    rng = np.random.RandomState(seed)
+    q = torch.from_numpy(rng.randn(b, 1, e).astype(np.float32)).to(cuda)
+    q = q.to(torch.bfloat16)
+    kv = torch.from_numpy(rng.randn(b, l, 2 * e).astype(np.float32))
+    kv = kv.to(cuda).to(torch.bfloat16)
+    if packed:
+        q = torch.cat([q, q, q], -1)[..., :e]
+        k, v = kv[..., :e], kv[..., e:]
+    else:
+        k, v = kv[..., :e].contiguous(), kv[..., e:].contiguous()
+    lengths = torch.from_numpy(rng.randint(1, l + 1, b)).to(cuda)
+    keep = torch.arange(l, device=cuda)[None, :] < lengths[:, None]
+    keep[list(masked)] = False
+    return q, k, v, keep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,e,h,packed,layout", [
+    (64, 1, 256, 8, False, "warp"), (64, 33, 256, 8, False, "warp"),
+    (64, 60, 256, 8, False, "warp"), (64, 40, 256, 8, True, "warp"),
+    (256, 60, 256, 8, False, "warp"), (64, 65, 256, 8, False, "block"),
+    (64, 1000, 256, 8, False, "block"), (7, 200, 64, 8, True, "warp"),
+    (7, 30, 512, 8, False, "warp"), (7, 16, 1024, 8, False, "warp"),
+    (7, 8, 2048, 8, False, "warp"), (7, 60, 1024, 8, False, "block"),
+])
+def test_single_query_mha_layouts_match_plain(cuda, monkeypatch, b, l, e, h,
+                                              packed, layout):
+    """The planned layout at the decode shapes and corners (L across the
+    warp layout's edge at 64, head widths 8 to 256), and the other layout
+    wherever it takes the shape: within the stated ulps of the plain
+    version, exact zeros on all-masked rows, two launches equal bit for
+    bit."""
+    q, k, v, keep = _sq_card(b, l, e, l, cuda, packed, masked=(1, b - 1))
+    assert tda.single_query_mha_plan(b, l, e // h)["layout"] == layout
+    ref = tda.single_query_mha_plain(q, k, v, keep, h)
+    outs = {}
+    for lay in ("warp", "block"):
+        try:
+            tda.single_query_mha_plan(b, l, e // h, layout=lay)
+        except ValueError:
+            continue
+        monkeypatch.setattr(tda, "single_query_mha_launch",
+                            lambda b_, l_, d_: tda.single_query_mha_plan(
+                                b_, l_, d_, layout=lay))
+        before = tda.LAUNCHES
+        out = tda.single_query_mha(q, k, v, keep, h)
+        again = tda.single_query_mha(q, k, v, keep, h)
+        torch.cuda.synchronize()
+        assert tda.LAUNCHES == before + 2
+        assert torch.equal(out, again)
+        _bf16_close(out, ref, ulps=SQ_ULPS)
+        assert (out[1] == 0).all() and (out[b - 1] == 0).all()
+        outs[lay] = out
+    assert layout in outs
