@@ -343,9 +343,8 @@ int sort_log(int ls) {
 template <int kLog>
 int launch_sort(const void* cw, int cw_is_bf16, const int32_t* ids,
                 float* out, int b, int ls, int smem, cudaStream_t stream) {
-  static unsigned long long raised = 0;
   const cudaError_t err = allow_smem(
-      reinterpret_cast<const void*>(combine_sort_kernel<kLog>), raised, smem);
+      reinterpret_cast<const void*>(combine_sort_kernel<kLog>), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   combine_sort_kernel<kLog><<<b, (1 << kLog) / kKeys, smem, stream>>>(
       cw, cw_is_bf16, ids, out, ls);
@@ -355,9 +354,8 @@ int launch_sort(const void* cw, int cw_is_bf16, const int32_t* ids,
 template <typename T>
 int launch_brute(const void* cw, const int32_t* ids, float* out, int b,
                  int ls, int smem, cudaStream_t stream) {
-  static unsigned long long raised = 0;
   const cudaError_t err = allow_smem(
-      reinterpret_cast<const void*>(combine_brute_kernel<T>), raised, smem);
+      reinterpret_cast<const void*>(combine_brute_kernel<T>), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((ls + kThreads - 1) / kThreads, b);
   combine_brute_kernel<T><<<grid, kThreads, smem, stream>>>(

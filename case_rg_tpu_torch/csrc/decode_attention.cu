@@ -434,9 +434,8 @@ int single_query_mha_bf16(int layout, const void* q, const void* k,
         qp, kp, vp, keepp, outp, b, h, l, e, qb, kb, kl, vb, vl, scale);
     return static_cast<int>(cudaGetLastError());
   }
-  static unsigned long long raised = 0;
-  const cudaError_t err = allow_smem(
-      reinterpret_cast<const void*>(sq_block_kernel), raised, smem);
+  const cudaError_t err =
+      allow_smem(reinterpret_cast<const void*>(sq_block_kernel), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   sq_block_kernel<<<dim3(b, h), kThreads, smem, s>>>(
       qp, kp, vp, keepp, outp, l, e, d, qb, kb, kl, vb, vl, scale);

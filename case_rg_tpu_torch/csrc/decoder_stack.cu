@@ -622,8 +622,8 @@ cudaError_t launch(int b, int smem, cudaStream_t stream, int* max_clusters,
                    bf16* xout, int nl, int tmax, int l, int h, int f,
                    float scale) {
   auto kern = stack_step_kernel<kC>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err =
+      allow_smem(reinterpret_cast<const void*>(kern), smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(kC * b);

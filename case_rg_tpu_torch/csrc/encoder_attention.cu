@@ -241,8 +241,8 @@ int fused_mha_bf16(const void* q, const void* k, const void* v,
                : d == 160 ? kernel_for<160>(lk)
                           : kernel_for<0>(lk);
   const int smem = smem_need(lq, lk, d);
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       smem);
+  const cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   void* args[] = {&a};
   cudaLaunchKernel(kern, dim3(r, h), dim3(32 * warps_for(lq)), args, smem,
                    static_cast<cudaStream_t>(stream));

@@ -2,9 +2,8 @@
 // m16n8k16 (bf16 in, f32 accumulate), ldmatrix fragment loads and their
 // addresses, cp.async staging, quad reductions, the attention kernels'
 // staging, fragment and store helpers, and the host's raising of a
-// kernel's shared-memory limit. Included by encoder_attention.cu,
-// decoder_stack.cu, train_attention.cu, decode_attention.cu and
-// copy_argmax.cu; the build
+// kernel's shared-memory and cluster limits. Included by every source
+// under csrc/; the build
 // (kernels/_build.py) hashes every header under csrc/ with each source, so
 // an edit here rebuilds them.
 
@@ -23,21 +22,40 @@ constexpr float kNegInf = -1e20f;
 constexpr int kDefaultSmem = 48 * 1024;   // dynamic shared memory, no opt-in
 constexpr int kSmemLimit = 232448;        // a block's most on sm_90
 
-// A kernel may use more than kDefaultSmem of dynamic shared memory only
-// after its limit is raised. This raises it to kSmemLimit once per process
-// and device: `raised`, a static of the caller's for this kernel, keeps a
-// bit a device.
-inline cudaError_t allow_smem(const void* kernel, unsigned long long& raised,
-                              int smem) {
-  if (smem <= kDefaultSmem) return cudaSuccess;
+// A kernel may use more than kDefaultSmem of dynamic shared memory, or run
+// in clusters of more than 8 blocks, only after its limits are raised. This
+// raises them once per process, device and kernel: the dynamic shared
+// memory to kSmemLimit less the kernel's static shared memory, and with
+// `wide_clusters` non-portable cluster sizes (up to 16
+// blocks). A table of the kernels raised so far keeps a bit a device each.
+// Every launcher of the port goes through it: no launch calls
+// cudaFuncSetAttribute again once its kernel is raised.
+inline cudaError_t allow_smem(const void* kernel, int smem,
+                              bool wide_clusters = false) {
+  constexpr int kSlots = 64;
+  static const void* kernels[kSlots];
+  static unsigned long long raised[kSlots];
+  if (smem <= kDefaultSmem && !wide_clusters) return cudaSuccess;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (dev < 64 && (raised >> dev & 1ull)) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmemLimit);
-  if (err == cudaSuccess && dev < 64) raised |= 1ull << dev;
+  int i = 0;
+  while (i < kSlots && kernels[i] && kernels[i] != kernel) ++i;
+  const bool kept = i < kSlots && dev < 64;
+  if (kept && kernels[i] && (raised[i] >> dev & 1ull)) return cudaSuccess;
+  cudaFuncAttributes fa;               // the limit counts static bytes too
+  err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemLimit - static_cast<int>(fa.sharedSizeBytes));
+  if (err == cudaSuccess && wide_clusters)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess && kept) {
+    kernels[i] = kernel;
+    raised[i] |= 1ull << dev;
+  }
   return err;
 }
 

@@ -985,8 +985,9 @@ int launch(int kind, const Args& a, int r, int h, int warps, int kt, int z,
     default:
       kern = bwd_tile<kD, 4, kRng, true>;
   }
-  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       smem);
+  const cudaError_t err =
+      allow_smem(reinterpret_cast<const void*>(kern), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   kern<<<dim3(r, h, z), warps * 32, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

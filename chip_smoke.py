@@ -9,8 +9,8 @@ In order it
      case_rg_tpu_torch/csrc (nvcc, sm_90a, one process per source, all at
      once) and prints the build time and each kernel's registers and shared
      memory (ptxas -v), then each serving kernel instance's registers and
-     spills (fused_mha, stack_step, single_query_mha, combine_copy_mass:
-     "serving kernel instances"; a spill fails the run);
+     spills (fused_mha, stack_step, single_query_mha, combine_copy_mass,
+     additive_scores: "serving kernel instances"; a spill fails the run);
   2. holds each kernel against its plain PyTorch version on the card, in
      bf16, at the shapes CaSE serving gives it (tolerances below):
      fused_mha (the four sites, two launches equal bit for bit),
@@ -21,8 +21,11 @@ In order it
      check in the block layout, each plan's layout asserted, the other
      layout held too where it takes the shape, two launches equal bit for
      bit) and
-     additive_scores (a decode step and teacher forcing over each memory,
-     forward, and backward at teacher forcing);
+     additive_scores (a decode step over each memory at B=64 and at the
+     beam's 256 rows, teacher forcing over each memory; the forward in its
+     one layout; the backward at teacher forcing in its planned layout,
+     asserted, and in the other where it takes the shape, two runs equal
+     bit for bit);
   3. times each kernel, its plain version and, where one PyTorch call
      computes the same function, that call (CUDA events, after warm-up),
      beside the least time the card could take (bytes over 3.35 TB/s, or
@@ -35,7 +38,10 @@ In order it
      clusters; single_query_mha by device time at each shape in both
      layouts, with clock64 marks of the warp layout's phases (an extra
      build of decode_attention.cu whose `// phase` lines become marks) and
-     the floor under any launch (a one-thread kernel);
+     the floor under any launch (a one-thread kernel); additive_scores by
+     device time (the backward in each layout), per B=64 predict, per beam
+     batch and per train step (forward and backward), with clock64 marks of
+     its forward and its backward;
   4. builds CaSE at the serving widths (V=30522, E=256, H=8, 3 encoder and
      2x4 decoder layers, bf16 weights drawn from a seed, with noisy biases
      and LayerNorm gains) and serves B=64 batches (query 60, pool 10x100,
@@ -197,10 +203,15 @@ SQ_SHAPES = ((B, P * LP, False), (B, LQ, False), (B, T_ANS, True),
 # the layout single_query_mha_plan must pick at each L of SQ_SHAPES: a warp a
 # (row, head) at the decode's lengths, a block a (row, head) at 1000 keys
 SQ_LAYOUTS = {P * LP: "block", LQ: "warp", T_ANS: "warp"}
-# additive_scores (T, L): a decode step over each memory, teacher forcing
-# over each memory
-ADD_DECODE = ((1, P * LP), (1, LQ))
-ADD_TRAIN = ((T_ANS, P * LP), (T_ANS, LQ))
+# additive_scores (rows, T, L): a decode step over each memory at the
+# served batch and at the beam's rows (B x 4), teacher forcing over each
+# memory; the backward layouts each teacher-forcing shape is held and
+# timed in (every one that takes it), and the one the plan must pick
+ADD_DECODE = ((B, 1, P * LP), (B, 1, LQ), (B * BEAM_WIDTH, 1, P * LP),
+              (B * BEAM_WIDTH, 1, LQ))
+ADD_TRAIN = ((B, T_ANS, P * LP), (B, T_ANS, LQ))
+ADD_BWD_LAYOUTS = ("cluster", "partials")
+ADD_BWD_PLANNED = {P * LP: "partials", LQ: "cluster"}
 # Kernels against their plain versions, in bf16 ulps per element as above
 # (the same function with the same rounding points, sums in another order;
 # additive_scores' tanh is the special-function unit's, which may land one
@@ -269,8 +280,10 @@ def max_sm_mhz() -> float:
 
 
 def sfu_per_s() -> float:
-    """tanh.approx results a second: 16 per clock on each of 132 SMs at the
-    card's maximum SM clock."""
+    """tanh results a second: 16 per clock on each of 132 SMs at the card's
+    maximum SM clock, the best per-element tanh rate tools/
+    probe_tanh_rates.py reads on an H100 (tanh.approx.f32 gives 16 a clock
+    an SM, tanh.approx.bf16x2 8 instructions of two)."""
     return 16 * 132 * max_sm_mhz() * 1e6
 
 
@@ -428,7 +441,8 @@ def start_stack_phase_build(_build):
 
 def start_phase_build(_build, name):
     """Start nvcc on a copy of csrc/<name>.cu whose every `// phase <mark>`
-    line becomes a clock64 mark by thread 0 of block 0 into a device array,
+    line becomes a clock64 mark by thread 0 of block (0, 0, 0) (clock64 is
+    an SM's own counter) into a device array,
     which the added read_phases copies out. Returns (the nvcc process, the
     library's path, the mark names in the source's order); the caller waits
     for the process."""
@@ -439,7 +453,8 @@ def start_phase_build(_build, name):
     for ln in open(src).read().splitlines():
         m = phase.fullmatch(ln)
         if m:
-            out.append(f"if (threadIdx.x == 0 && blockIdx.x == 0) "
+            out.append(f"if (threadIdx.x == 0 && blockIdx.x == 0 && "
+                       f"blockIdx.y == 0 && blockIdx.z == 0) "
                        f"g_phase[{len(names)}] = clock64();")
             names.append(m.group(1))
         else:
@@ -461,13 +476,14 @@ def start_phase_build(_build, name):
     return proc, lib, names
 
 
-def kernel_phases(build, module, functions, run):
+def kernel_phases(build, module, functions, run, prefix=""):
     """One launch's clock64 marks through the instrumented build of
     start_phase_build: ``run()`` calls the wrapper of ``module``, whose
     ``_lib`` is swapped for the build (``functions``: its C functions).
-    The marks in the order they were taken, as µs between each and the
-    one before at the card's maximum SM clock, and the launch's µs from
-    the first mark to the last (thread 0 of block 0)."""
+    The marks whose names start with ``prefix`` (one kernel's, where a
+    source has several), in the order they were taken, as µs between each
+    and the one before at the card's maximum SM clock, and the launch's µs
+    from the first mark to the last (thread 0 of block 0)."""
     import ctypes
     from case_rg_tpu_torch.kernels import _build
     proc, path, names = build
@@ -488,7 +504,8 @@ def kernel_phases(build, module, functions, run):
         module._lib = plain_lib
     marks = (ctypes.c_longlong * len(names))()
     _build.check(lib.read_phases(marks, len(names)), "read_phases")
-    order = sorted(zip(list(marks), names))
+    order = sorted((m, nm) for m, nm in zip(list(marks), names)
+                   if nm.startswith(prefix))
     mhz = max_sm_mhz()
     return {"us": {nm: (c - p) / mhz for (p, _), (c, nm) in
                    zip(order[:-1], order[1:])},
@@ -766,79 +783,159 @@ def check_and_time_single_query(dev, gen, phase_build):
     return total, rows
 
 
-def additive_inputs(t, l, gen, dev):
-    """wq [B, t, E], uh [B, l, E], v [E] and an upstream gradient, bf16,
+def additive_inputs(r, t, l, gen, dev):
+    """wq [r, t, E], uh [r, l, E], v [E] and an upstream gradient, bf16,
     at the scale the copy attention gives them (projections of normed
     streams: entries of order 1)."""
-    wq = torch.randn(B, t, E, generator=gen, device=dev).to(torch.bfloat16)
-    uh = torch.randn(B, l, E, generator=gen, device=dev).to(torch.bfloat16)
+    wq = torch.randn(r, t, E, generator=gen, device=dev).to(torch.bfloat16)
+    uh = torch.randn(r, l, E, generator=gen, device=dev).to(torch.bfloat16)
     v = (torch.randn(E, generator=gen, device=dev) / 16).to(torch.bfloat16)
-    g = torch.randn(B, t, l, generator=gen, device=dev).to(torch.bfloat16)
+    g = torch.randn(r, t, l, generator=gen, device=dev).to(torch.bfloat16)
     return wq, uh, v, g
 
 
-def check_and_time_additive(dev, gen):
+def cold_ms(fn, x, l2_bytes=50e6):
+    """device_ms of fn(copy) over copies of x that together exceed twice the
+    L2 cache, in turn: each launch reads its x from device memory, as a
+    caller finds it whose other work between two launches fills the cache
+    (a decode step's stack_step streams the memories)."""
+    import itertools
+    n = max(2, -(-int(2 * l2_bytes) // nbytes(x)))
+    copies = itertools.cycle([x.clone() for _ in range(n)])
+    return device_ms(lambda: fn(next(copies)))
+
+
+def additive_forced(aa, bwd):
+    """other_plan that makes the wrapper launch the backward layout ``bwd``
+    of additive_scores_plan."""
+    return other_plan(aa, "additive_scores_launch",
+                      lambda b, t, l, h: aa.additive_scores_plan(
+                          b, t, l, h, bwd=bwd))
+
+
+def check_and_time_additive(dev, gen, phase_build):
     """additive_scores against its plain versions in bf16 ulps: the forward
-    at the decode shapes (T=1) and at teacher forcing (T=40), the backward
-    at teacher forcing (twice: the same bits each time), with device times
-    of each kernel and its plain version and the bound: the larger of the
-    bytes (inputs once, outputs once) over 3.35 TB/s and the B*T*L*H tanh
-    the function needs over the special-function unit's rate (the backward
-    needs the same tanh once). No single PyTorch call computes it, so there
-    is no library time. Totals: the forward per B=64 predict (40 steps over
-    both memories), the backward per train step (both memories)."""
+    at the decode shapes (the served batch and the beam's B x 4 rows, both
+    memories) and at teacher forcing (T = 40), the backward at teacher
+    forcing in its planned layout (asserted: ADD_BWD_PLANNED) and in the
+    other where it takes the shape, forced through other_plan (each twice:
+    the same bits each time). Device times (device_ms) of the planned
+    launch, of each backward layout and of the plain versions, beside the
+    bound: the larger of the bytes (inputs once, outputs once) over 3.35
+    TB/s and the B*T*L*H tanh the function needs over the best tanh rate
+    (sfu_per_s; the backward needs the same tanh once). At T = 1 also
+    cold_ms: uh read from device memory on every launch (the byte bound is
+    for that; on repeated launches a 32.8 MB uh stays in the 50 MB L2). No
+    single PyTorch call computes it, so there is no library time. clock64
+    marks of the forward at (B, 1, 1000) and of the backward at (B, 40,
+    1000). Totals: the forward per B=64 predict and per beam batch (40
+    steps over both memories), the forward and the backward per train step
+    (both memories)."""
     from case_rg_tpu_torch.kernels import additive_attention as aa
     sfu = sfu_per_s()
+    fns = ("additive_bwd_smem_bytes", "additive_scores_fwd_bf16",
+           "additive_scores_bwd_bf16")
     rows = []
-    for t, l in ADD_DECODE + ADD_TRAIN:
-        wq, uh, v, g = additive_inputs(t, l, gen, dev)
-        out = aa.additive_scores(wq, uh, v)
+    for r, t, l in ADD_DECODE + ADD_TRAIN:
+        wq, uh, v, g = additive_inputs(r, t, l, gen, dev)
+        plan = aa.additive_scores_plan(r, t, l, E)
         ref = aa.additive_scores_plain(wq, uh, v)
+        out = aa.additive_scores(wq, uh, v)
         torch.cuda.synchronize()
         ulps, err = bf16_ulps(out, ref)
-        check(ulps <= ADD_FWD_ULPS, f"additive_scores {(t, l)}: kernel vs "
-              f"plain {ulps} bf16 ulps > {ADD_FWD_ULPS}")
-        n_tanh = B * t * l * E
-        row = {"T": t, "L": l, "max_ulps": ulps, "max_abs_err": err,
+        check(ulps <= ADD_FWD_ULPS, f"additive_scores {(r, t, l)}: kernel "
+              f"vs plain {ulps} bf16 ulps > {ADD_FWD_ULPS}")
+        n_tanh = r * t * l * E
+        row = {"rows": r, "T": t, "L": l,
+               "keys_a_warp": plan["fwd"]["keys_a_warp"],
+               "max_ulps": ulps, "max_abs_err": err,
                "ms": device_ms(lambda: aa.additive_scores(wq, uh, v)),
                "plain_ms": device_ms(
                    lambda: aa.additive_scores_plain(wq, uh, v), iters=5),
                "library_ms": None}
         row["bound_ms"], row["bound_by"] = bound_ms(
             nbytes(wq, uh, v, out), n_tanh, sfu)
+        if t == 1:   # uh from device memory, as a decode step finds it
+            row["cold_ms"] = cold_ms(
+                lambda u: aa.additive_scores(wq, u, v), uh)
+        if (r, t, l) == (B, 1, P * LP):
+            row["phases"] = kernel_phases(
+                phase_build, aa, fns, lambda: aa.additive_scores(wq, uh, v),
+                prefix="fwd")
         if t > 1:
-            xs = [x.clone().requires_grad_() for x in (wq, uh, v)]
-            y = aa.additive_scores(*xs)
-            grads = [torch.autograd.grad(y, xs, g, retain_graph=True)
-                     for _ in range(2)]
-            torch.cuda.synchronize()
-            check(all(torch.equal(a, b) for a, b in zip(*grads)),
-                  f"additive_scores backward {(t, l)}: two runs differ")
-            want = aa.additive_scores_plain_bwd(wq, uh, v, g)
-            read = [bf16_ulps(a, b) for a, b in zip(grads[0], want)]
-            g_ulps = max(u for u, _ in read)
-            check(g_ulps <= ADD_BWD_ULPS, f"additive_scores backward "
-                  f"{(t, l)}: {g_ulps} bf16 ulps > {ADD_BWD_ULPS}")
-            row["bwd"] = {
-                "max_ulps": g_ulps, "max_abs_err": max(x for _, x in read),
-                "ms": device_ms(lambda: aa._launch_bwd(wq, uh, v, g)),
-                "plain_ms": device_ms(
-                    lambda: aa.additive_scores_plain_bwd(wq, uh, v, g),
-                    iters=3),
-                "library_ms": None}
-            row["bwd"]["bound_ms"], row["bwd"]["bound_by"] = bound_ms(
-                nbytes(wq, uh, v, g, wq, uh, v), n_tanh, sfu)
+            row["bwd"] = additive_backward(aa, wq, uh, v, g, n_tanh, sfu)
+            if l == P * LP:
+                row["bwd"]["phases"] = kernel_phases(
+                    phase_build, aa, fns,
+                    lambda: aa._launch_bwd(wq, uh, v, g), prefix="bwd")
         rows.append(row)
-    keys = ("ms", "plain_ms", "bound_ms")
-    fwd = {k: T_ANS * sum(r[k] for r in rows if r["T"] == 1) for k in keys}
-    bwd = {k: sum(r["bwd"][k] for r in rows if "bwd" in r) for k in keys}
-    for tot, part in ((fwd, [r for r in rows if r["T"] == 1]),
-                      (bwd, [r["bwd"] for r in rows if "bwd" in r])):
+    keys = ("ms", "plain_ms", "bound_ms", "cold_ms")
+    total = lambda part: {k: sum(x[k] for x in part) for k in keys
+                          if all(k in x for x in part)}
+    served = [x for x in rows if x["T"] == 1 and x["rows"] == B]
+    beam = [x for x in rows if x["T"] == 1 and x["rows"] == B * BEAM_WIDTH]
+    train = [x for x in rows if x["T"] > 1]
+    fwd = {k: T_ANS * x for k, x in total(served).items()}
+    fwd["per_beam_batch"] = {k: T_ANS * x for k, x in total(beam).items()}
+    fwd["per_train_step"] = total(train)
+    bwd_keys = ("ms", "plain_ms", "bound_ms", "cluster_ms", "partials_ms")
+    bwd = {k: sum(x["bwd"][k] or 0.0 for x in train) for k in bwd_keys}
+    for tot, part in ((fwd, served), (bwd, [x["bwd"] for x in train])):
         tot.update(library_ms=None, max_ulps=max(x["max_ulps"] for x in part),
                    max_abs_err=max(x["max_abs_err"] for x in part),
                    bound_by=max(part, key=lambda x: x["bound_ms"])["bound_by"])
-    fwd["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    fwd["max_abs_err"] = max(x["max_abs_err"] for x in rows)
+    fwd["max_ulps"] = max(x["max_ulps"] for x in rows)
     return fwd, bwd, rows, sfu
+
+
+def additive_backward(aa, wq, uh, v, g, n_tanh, sfu):
+    """The backward at one teacher-forcing shape: planned (asserted) and
+    each layout that takes the shape, against the plain version (see
+    check_and_time_additive)."""
+    want = aa.additive_scores_plain_bwd(wq, uh, v, g)
+    xs = [x.clone().requires_grad_() for x in (wq, uh, v)]
+    y = aa.additive_scores(*xs)
+    grads = [torch.autograd.grad(y, xs, g, retain_graph=True)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    shape = tuple(g.shape)
+    check(all(torch.equal(a, b) for a, b in zip(*grads)),
+          f"additive_scores backward {shape}: two runs differ")
+    plan = aa.additive_scores_plan(*wq.shape[:2], uh.shape[1], E)["bwd"]
+    check(plan["layout"] == ADD_BWD_PLANNED[uh.shape[1]],
+          f"additive_scores backward {shape}: planned {plan['layout']}, not "
+          f"{ADD_BWD_PLANNED[uh.shape[1]]}")
+    read = [bf16_ulps(a, b) for a, b in zip(grads[0], want)]
+    out = {"layout": plan["layout"], "cluster": plan["cluster"],
+           "max_ulps": max(u for u, _ in read),
+           "max_abs_err": max(x for _, x in read),
+           "ms": device_ms(lambda: aa._launch_bwd(wq, uh, v, g)),
+           "plain_ms": device_ms(
+               lambda: aa.additive_scores_plain_bwd(wq, uh, v, g), iters=3),
+           "library_ms": None}
+    for lay in ADD_BWD_LAYOUTS:
+        forced = additive_forced(aa, lay)
+        if not forced.fits(*wq.shape[:2], uh.shape[1], E):
+            out[f"{lay}_ms"] = None
+            continue
+        with forced:
+            got = [aa._launch_bwd(wq, uh, v, g) for _ in range(2)]
+            torch.cuda.synchronize()
+            out[f"{lay}_ms"] = device_ms(lambda: aa._launch_bwd(wq, uh, v, g))
+        check(all(torch.equal(a, b) for a, b in zip(*got)),
+              f"additive_scores backward {shape} {lay}: two runs differ")
+        if lay == plan["layout"]:
+            check(all(torch.equal(a, b) for a, b in zip(got[0], grads[0])),
+                  f"additive_scores backward {shape}: {lay} forced differs "
+                  f"from planned")
+        out["max_ulps"] = max(out["max_ulps"], max(
+            bf16_ulps(a, b)[0] for a, b in zip(got[0], want)))
+    check(out["max_ulps"] <= ADD_BWD_ULPS, f"additive_scores backward "
+          f"{shape}: {out['max_ulps']} bf16 ulps > {ADD_BWD_ULPS}")
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        nbytes(wq, uh, v, g, wq, uh, v), n_tanh, sfu)
+    return out
 
 
 # ---- phase 4: CaSE serving ----
@@ -2097,7 +2194,8 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build = start_stack_phase_build(_build)
     phase_builds = {n: start_phase_build(_build, n)
-                    for n in ("decode_attention", "copy_argmax")}
+                    for n in ("decode_attention", "copy_argmax",
+                              "additive_attention")}
     try:
         logs = _build.build_all()
     finally:            # nvcc of the phase builds ends here, whatever happens
@@ -2114,7 +2212,8 @@ def main() -> int:
     print("train attention instances: " + json.dumps(instances), flush=True)
     serving = {n: kernel_instances(logs[n])
                for n in ("encoder_attention", "decoder_stack",
-                         "decode_attention", "copy_argmax")}
+                         "decode_attention", "copy_argmax",
+                         "additive_attention")}
     print("serving kernel instances: " + json.dumps(serving), flush=True)
     for n, inst in serving.items():
         check_no_spills(inst, n)
@@ -2131,9 +2230,13 @@ def main() -> int:
         dev, gen, phase_builds["decode_attention"])
     print("single_query_mha: " + json.dumps(sq_rows), flush=True)
     print("single_query_mha per predict: " + json.dumps(sq), flush=True)
-    add_fwd, add_bwd, add_rows, sfu = check_and_time_additive(dev, gen)
+    add_fwd, add_bwd, add_rows, sfu = check_and_time_additive(
+        dev, gen, phase_builds["additive_attention"])
     print(f"additive_scores (tanh bound at {sfu:.4g}/s): "
           + json.dumps(add_rows), flush=True)
+    print("additive_scores totals: " + json.dumps(
+        {"fwd_per_predict": add_fwd, "bwd_per_train_step": add_bwd}),
+        flush=True)
     cfg, model = serving_model(dev)
     serve = serve_case(dev, cfg, model)
     print("case serving: " + json.dumps(serve), flush=True)

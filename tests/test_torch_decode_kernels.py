@@ -261,6 +261,81 @@ def test_single_query_mha_plan_takes_every_shape_the_wrapper_takes():
             tda.single_query_mha_plan(1, 60, d)
 
 
+@pytest.mark.parametrize("b,t,l,keys,bwd,cluster", [
+    (64, 1, 1000, 8, "partials", (8, 1)),
+    (64, 1, 60, 4, "cluster", (1, 1)),
+    (256, 1, 1000, 8, "partials", (8, 1)),
+    (64, 40, 1000, 8, "partials", (8, 1)),
+    (64, 40, 60, 8, "cluster", (1, 3)),
+    (64, 40, 500, 8, "cluster", (8, 1)),
+    (64, 40, 3000, 8, "partials", (8, 1)),
+    (8, 100, 1000, 8, "partials", (8, 1)),
+])
+def test_additive_scores_plan(b, t, l, keys, bwd, cluster):
+    """The forward a warp 8 keys of a query row where that still gives 16
+    warps an SM, else 4, at every T; the backward in one cluster a row up
+    to 8 key tiles of 64 (the 60-key memory splits its queries over the
+    cluster instead), in partials beyond; every grid covers the shape and
+    every block fits."""
+    plan = taa.additive_scores_plan(b, t, l, 256)
+    f, w = plan["fwd"], plan["bwd"]
+    assert (f["keys_a_warp"], w["layout"], w["cluster"]) == (keys, bwd,
+                                                             cluster)
+    assert f["grid"][0] == b * t
+    assert f["grid"][1] * 4 * f["keys_a_warp"] >= l
+    gx, split, gz = w["grid"]
+    assert gz == b and gx * 64 >= l and gx % w["cluster"][0] == 0
+    assert split * w["queries_a_block"] >= t and w["chunk"] <= 48
+    assert 2 * (w["smem"] + 1024) <= 228 * 1024      # two blocks an SM
+    assert w["cluster"][0] * w["cluster"][1] <= 16
+    assert w["smem"] <= SMEM_LIMIT
+    assert w["clusters"] == gx // w["cluster"][0] * b
+
+
+def test_additive_scores_plan_refuses_what_no_layout_takes():
+    for h in (264, 12, 4, 0):
+        with pytest.raises(ValueError):
+            taa.additive_scores_plan(64, 1, 60, h)
+    for shape in ((0, 1, 60, 256), (65536, 1, 60, 256), (64, 0, 60, 256),
+                  (64, 1, 0, 256)):
+        with pytest.raises(ValueError):
+            taa.additive_scores_plan(*shape)
+    with pytest.raises(ValueError):       # 47 key tiles: beyond a cluster
+        taa.additive_scores_plan(64, 40, 3000, 256, bwd="cluster")
+    with pytest.raises(ValueError):
+        taa.additive_scores_plan(64, 40, 60, 256, bwd="dense")
+    with pytest.raises(ValueError):       # 93750 forward block rows > 65535
+        taa.additive_scores_plan(1, 1, 3_000_000, 256)
+    for h in (8, 16, 24, 128, 256):       # every width the kernels take
+        for t, l in ((1, 1), (40, 60), (100, 3000)):
+            taa.additive_scores_plan(3, t, l, h)
+            taa.additive_scores_plan(3, t, l, h, bwd="partials")
+
+
+def test_shared_memory_limits_are_raised_only_through_allow_smem():
+    """Every kernel source raises a kernel's shared-memory (and cluster)
+    limit through sm90.cuh's allow_smem, once per process, device and
+    kernel: cudaFuncSetAttribute appears nowhere else under csrc/."""
+    import pathlib
+    import re
+    csrc = pathlib.Path(taa.__file__).resolve().parent.parent / "csrc"
+    found = {}
+    for path in sorted(csrc.glob("*.cu*")):
+        text = path.read_text()
+        n = len(re.findall(r"cudaFuncSetAttribute\s*\(", text))
+        if n:
+            found[path.name] = n
+    assert set(found) == {"sm90.cuh"}, found
+    text = (csrc / "sm90.cuh").read_text()
+    body = text[text.index("inline cudaError_t allow_smem("):]
+    body = body[:body.index("\n}\n")]
+    assert len(re.findall(r"cudaFuncSetAttribute\s*\(", body)) \
+        == found["sm90.cuh"]
+    for path in sorted(csrc.glob("*.cu")):
+        if "allow_smem(" in path.read_text():
+            assert '#include "sm90.cuh"' in path.read_text()
+
+
 # ---- on the card: each CUDA kernel against its plain version (bf16) ----
 
 @pytest.mark.cuda
@@ -293,20 +368,42 @@ def test_single_query_mha_kernel_matches_plain(cuda, b, l, e, h, packed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,t,l,h", [
     (64, 1, 1000, 256), (64, 40, 60, 256), (4, 40, 1000, 256),
-    (3, 5, 37, 16),
+    (3, 5, 37, 16), (256, 1, 1000, 256), (64, 40, 3000, 256),
+    (8, 100, 1000, 256), (3, 5, 37, 8),
 ])
-def test_additive_scores_kernels_match_plain(cuda, b, t, l, h):
+def test_additive_scores_kernels_match_plain(cuda, monkeypatch, b, t, l, h):
+    """The forward, and every backward layout that takes the shape (the
+    beam's 256 rows, a row beyond one cluster's keys, T beyond one chunk,
+    narrow H): within the stated ulps of the plain versions; two backward
+    runs equal bit for bit."""
     wq, uh, v, g = (torch.from_numpy(a).to(cuda).to(torch.bfloat16)
                     for a in _add_inputs(b, t, l, h, seed=t))
+    want = taa.additive_scores_plain(wq, uh, v)
+    want_g = taa.additive_scores_plain_bwd(wq, uh, v, g)
     xs = [x.clone().requires_grad_() for x in (wq, uh, v)]
-    out = taa.additive_scores(*xs)
-    grads = torch.autograd.grad(out, xs, g)
-    torch.cuda.synchronize()
-    _bf16_close(out, taa.additive_scores_plain(wq, uh, v), ADD_FWD_ULPS)
-    for got, want in zip(grads, taa.additive_scores_plain_bwd(wq, uh, v, g)):
-        _bf16_close(got, want, ADD_BWD_ULPS)
-    again = torch.autograd.grad(taa.additive_scores(*xs), xs, g)
-    assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+    ran = []
+    for bwd in ("cluster", "partials"):
+        try:
+            taa.additive_scores_plan(b, t, l, h, bwd)
+        except ValueError:
+            continue
+        monkeypatch.setattr(
+            taa, "additive_scores_launch",
+            lambda b_, t_, l_, h_, w=bwd:
+            taa.additive_scores_plan(b_, t_, l_, h_, w))
+        before = (taa.LAUNCHES, taa.LAUNCHES_BWD)
+        out = taa.additive_scores(*xs)
+        grads = torch.autograd.grad(out, xs, g)
+        again = torch.autograd.grad(taa.additive_scores(*xs), xs, g)
+        torch.cuda.synchronize()
+        assert (taa.LAUNCHES, taa.LAUNCHES_BWD) == (before[0] + 2,
+                                                    before[1] + 2)
+        _bf16_close(out, want, ADD_FWD_ULPS)
+        for got, ref in zip(grads, want_g):
+            _bf16_close(got, ref, ADD_BWD_ULPS)
+        assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+        ran.append(bwd)
+    assert ran
 
 
 def _sq_card(b, l, e, seed, cuda, packed=False, masked=(1,)):
