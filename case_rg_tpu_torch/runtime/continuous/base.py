@@ -16,17 +16,37 @@ from ...decode.loops import validate_controls
 from ...device import batch_to_device, resolve_device
 
 
-def _scatter_rows(s, n, dst: torch.Tensor, src: torch.Tensor) -> None:
-    if isinstance(s, torch.Tensor):
-        s[dst] = n[src]
-    elif isinstance(s, dict):
-        for k in s:
-            _scatter_rows(s[k], n[k], dst, src)
-    elif isinstance(s, (list, tuple)):
-        for a, c in zip(s, n):
-            _scatter_rows(a, c, dst, src)
-    elif s is not None:
-        raise TypeError(f"refill_rows: unexpected state leaf {type(s)}")
+def tree_map(fn, tree, *rest):
+    """``fn`` over the tensor leaves of a decode state (dicts, lists and
+    tuples of tensors; None stays None), the other trees walked in step."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, *leaves)
+                          for leaves in zip(tree, *rest))
+    if tree is None:
+        return None
+    raise TypeError(f"unexpected decode-state leaf {type(tree)}")
+
+
+def leaves(tree) -> List[torch.Tensor]:
+    """The tensor leaves of a decode state, in ``tree_map``'s order."""
+    out: List[torch.Tensor] = []
+    tree_map(out.append, tree)
+    return out
+
+
+def host_to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` without making the host wait: on a card,
+    a non-blocking copy from pinned memory. The pinned block comes from
+    PyTorch's caching host allocator, which records the copy's stream and
+    does not hand the block out again before the copy has run."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 @torch.inference_mode()
@@ -37,15 +57,18 @@ def refill_rows(state: dict, new_state: dict, rows) -> dict:
     ``rows`` (a host sequence) has ``new_state``'s batch size; entries
     outside [0, B) of ``state``'s batch size B (padding slots of a
     part-filled refill) are dropped here on the host, since an index out of
-    range raises."""
+    range raises. The row indices reach the card by ``host_to_device``, so
+    a refill does not wait for the chunk in flight."""
     rows = np.asarray(rows, dtype=np.int64).reshape(-1)
-    b = state["out"].shape[0]
+    first = leaves(state)[0]
+    b, dev = first.shape[0], first.device
     src = np.flatnonzero((rows >= 0) & (rows < b))
     if len(src):
-        dev = state["out"].device
-        _scatter_rows(state, new_state,
-                      torch.as_tensor(rows[src], device=dev),
-                      torch.as_tensor(src, device=dev))
+        dst_t = host_to_device(rows[src], dev)
+        src_t = host_to_device(src, dev)
+        tree_map(lambda s, n: s.index_copy_(0, dst_t,
+                                            n.index_select(0, src_t)),
+                 state, new_state)
     return state
 
 

@@ -88,7 +88,20 @@ In order it
      (a key per request): launches counted around the base run, a repeat
      equal bit for bit, the one-shot sampled predict with the same keys
      gated at the stated agreements;
- 10. trains CaSE at the same widths (dropout 0.1, B=64 batches with a
+ 10. serves the 512 requests through the device loop (batch 64, 4 steps a
+     chunk, 8 chunks a mega, a ring of 256 encoded requests, refill 16,
+     lookahead; pallas mode), each mega a replay of a CUDA graph captured
+     in a warm-up run: launches reckoned as each capture's recorded
+     launches times its replays plus the counters' rise, held to the
+     chunks run; answers equal to the chunk loop's base run token for
+     token (also without lookahead and with the round's host side under
+     no_host_sync), sampled answers equal to the sampled chunk loop's, the
+     multi-lane device loop's full-bucket answers equal too; requests/s of
+     both loops in turns with a profile of each, one mega's device time
+     beside the host time of an encode issued behind a spin kernel,
+     capture seconds and pool bytes, and requests/s at (4, 8), (8, 4) and
+     (4, 16) steps and chunks ("device-loop serving");
+ 11. trains CaSE at the same widths (dropout 0.1, B=64 batches with a
      response, passage and token labels; f32 masters, bf16 compute) through
      the train step of case_rg_tpu_torch.train.trainer. First it holds the
      four training-attention kernels (forward and backward of
@@ -106,7 +119,7 @@ In order it
      counters set to 0 just before, read just after; the loss must fall),
      the same 10 steps with the plain versions, profiles two steps with
      torch.profiler, and runs one step under no_host_sync;
- 11. prints one JSON line {"kernels": [...]} and, last, the device line
+ 12. prints one JSON line {"kernels": [...]} and, last, the device line
      {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -1501,19 +1514,12 @@ def serve_continuous(dev, cfg, model, reqs, caps):
     from case_rg_tpu_torch.runtime.inference import make_predict_fn
     n = len(caps)
 
-    def batch_maker(arrays):
-        def make_batch(items, bs):
-            idx = [r["i"] for r in items]
-            idx += [idx[-1]] * (bs - len(idx))     # padding rows repeat
-            return dict(take(arrays, idx), response_cap=caps[idx])
-        return make_batch
-
     fns = {mode: make_continuous_fns(model, T_ANS, CHUNK_STEPS,
                                      fast_argmax=mode, device=dev)
            for mode in ("pallas", "dense")}
     def single(k=n, mode="pallas", **opts):
         return timed(lambda emit: run_continuous(
-            items(k), batch_maker(reqs), *fns[mode], batch_size=B,
+            items(k), batch_maker(reqs, caps), *fns[mode], batch_size=B,
             refill=REFILL, emit=emit, **opts), k)
 
     single()                                  # warm-up
@@ -1545,7 +1551,8 @@ def serve_continuous(dev, cfg, model, reqs, caps):
     # multi-lane: one lane per pool bucket; a request goes to the smallest
     # bucket that holds its non-empty passages
     used = (reqs["passage"] != 0).any(-1).sum(-1)
-    lanes = {p: Lane(p, batch_maker(dict(reqs, passage=reqs["passage"][:, :p])),
+    lanes = {p: Lane(p, batch_maker(dict(reqs, passage=reqs["passage"][:, :p]),
+                                 caps),
                      *fns["pallas"], batch_size=B, refill=REFILL)
              for p in BUCKETS}
     route = lambda r: lanes[min(p for p in BUCKETS if used[r["i"]] <= p)]
@@ -1580,11 +1587,31 @@ def serve_continuous(dev, cfg, model, reqs, caps):
     got, res["base_again"] = single()
     same_as_base(got, "base again")
     res["profile"] = profile_device(lambda k: single(k=k), [2 * B])
-    return res
+    return res, base
 
 
 def items(k: int):
     return iter([{"i": i} for i in range(k)])
+
+
+def batch_maker(arrays, caps, keys=None):
+    """``make_batch(items, bs)`` of the continuous drivers over request
+    ``arrays`` with answer ``caps`` (and sampling ``keys``): padding rows
+    repeat the last request."""
+    def make_batch(its, bs):
+        idx = [r["i"] for r in its]
+        idx += [idx[-1]] * (bs - len(idx))
+        batch = dict(take(arrays, idx), response_cap=caps[idx])
+        if keys is not None:
+            batch["sample_key"] = keys[idx]
+        return batch
+    return make_batch
+
+
+def sample_keys(n: int) -> np.ndarray:
+    """A sampling key per request, from seed 11."""
+    return np.random.RandomState(11).randint(0, 2 ** 32, (n, 2),
+                                             dtype=np.int64)
 
 
 def timed(drive, k: int):
@@ -1731,14 +1758,8 @@ def serve_continuous_sampled(dev, cfg, model, reqs, caps):
                                                       run_continuous)
     from case_rg_tpu_torch.runtime.inference import make_predict_fn
     n = len(caps)
-    keys = np.random.RandomState(11).randint(0, 2 ** 32, (n, 2),
-                                             dtype=np.int64)
-
-    def make_batch(its, bs):
-        idx = [r["i"] for r in its]
-        idx += [idx[-1]] * (bs - len(idx))
-        return dict(take(reqs, idx), response_cap=caps[idx],
-                    sample_key=keys[idx])
+    keys = sample_keys(n)
+    make_batch = batch_maker(reqs, caps, keys)
 
     fns = make_continuous_fns(model, T_ANS, CHUNK_STEPS, decoding="sample",
                               device=dev, **SAMPLE_CONTROLS)
@@ -1773,6 +1794,218 @@ def serve_continuous_sampled(dev, cfg, model, reqs, caps):
           and vs_one["first_token_agreement"] >= MIN_FIRST_TOKEN_AGREEMENT,
           f"sampled continuous vs one-shot sample: {vs_one}")
     res["vs_one_shot"] = vs_one
+    return res, base
+
+
+# ---- the device loop ----
+
+# the device loop at full width: steps a chunk, chunks a mega, ring rows;
+# refill width REFILL and batch B as in the chunk loop; the (steps, K)
+# pairs whose requests/s decide the knee again on the card
+DL_STEPS, DL_K, DL_RING = 4, 8, 256
+DL_KNEE = ((4, 8), (8, 4), (4, 16))
+SPIN_CYCLES = int(1e8)                 # ~50 ms at 1.98 GHz
+
+
+def serve_device_loop(dev, cfg, model, reqs, caps, chunk_base, sampled_base):
+    """The 512 requests through run_continuous_device (greedy pallas, B=64,
+    DL_STEPS steps a chunk, DL_K chunks a mega, a ring of DL_RING rows,
+    refill 16, lookahead), each mega a replay of its lane's CUDA graph.
+    A warm-up run captures the graph; then, every launch counter set to 0
+    just before the base run and read just after, the base run's launches
+    are reckoned as the counters' rise (the eager encodes) plus each
+    capture's recorded launches times its replays in the run, and held to
+    the chunks the megas ran. Gates: every answer equals the chunk loop's
+    base run (`chunk_base`), without lookahead too, and in a run whose
+    host-side programs (encode, wrap, ring push, the replay, the harvest
+    copy) run under no_host_sync; the sampled device loop equals the
+    sampled chunk loop (`sampled_base`); the multi-lane device loop over
+    BUCKETS equals the single lane on the full bucket. Also: requests/s of
+    both loops in turns (chunk, device, device, chunk), a profile of each
+    over half the requests, host ms of an encode issued behind a ~50 ms
+    spin kernel against one mega's device time, capture seconds and pool
+    bytes, and requests/s at each DL_KNEE pair."""
+    from case_rg_tpu_torch.device import no_host_sync
+    from case_rg_tpu_torch.runtime import graphs
+    from case_rg_tpu_torch.runtime.continuous import (
+        DeviceLane, base as cbase, make_continuous_fns, make_device_loop_fns,
+        run_continuous, run_continuous_device, run_continuous_device_multi)
+    from case_rg_tpu_torch.kernels import (additive_attention,
+                                           copy_argmax, decode_attention,
+                                           decoder_stack, encoder_attention)
+    counters = (encoder_attention, decoder_stack, copy_argmax,
+                decode_attention, additive_attention)
+    n = len(caps)
+    make_batch = batch_maker(reqs, caps)
+
+    made = []
+
+    def loop_fns(steps=DL_STEPS, k=DL_K, **kw):
+        kw.setdefault("fast_argmax", "pallas")
+        made.append(make_device_loop_fns(model, T_ANS, steps, k, DL_RING,
+                                         device=dev, **kw))
+        return made[-1]
+
+    def device(fns, k=n, mb=make_batch, lookahead=True):
+        return timed(lambda emit: run_continuous_device(
+            items(k), mb, fns, batch_size=B, refill=REFILL, emit=emit,
+            max_len=T_ANS, lookahead=lookahead), k)
+
+    chunk_fns = make_continuous_fns(model, T_ANS, CHUNK_STEPS,
+                                    fast_argmax="pallas", device=dev)
+
+    def chunk(k=n):
+        return timed(lambda emit: run_continuous(
+            items(k), make_batch, *chunk_fns, batch_size=B, refill=REFILL,
+            emit=emit), k)
+
+    def same_as(got, want, what):
+        bad = [i for i in got if not np.array_equal(got[i][0], want[i][0])]
+        check(not bad, f"device loop {what}: {len(bad)} answers differ from "
+              f"the chunk loop's (first: request {bad[:1]})")
+
+    def with_occupancy(stats, steps=DL_STEPS, k=DL_K):
+        rows = B * steps
+        return dict(stats, occupancy=stats["steps_served"]
+                    / (rows * stats["chunks"]),
+                    occupancy_of_megas=stats["steps_served"]
+                    / (rows * k * stats["megas"]))
+
+    fns = loop_fns()
+    _, warm = device(fns)                          # warm-up: captures
+    check(len(fns.captures) == 1, f"device loop: {len(fns.captures)} "
+          "captures in the warm-up run")
+    cap = fns.captures[0]
+    replays0 = cap["replays"]
+    for mod in counters:
+        mod.LAUNCHES = 0
+    got, stats = device(fns)
+    rise = graphs.launch_counts()
+    replays = cap["replays"] - replays0
+    check(len(fns.captures) == 1 and replays == stats["megas"],
+          f"device loop: {len(fns.captures)} captures, {replays} replays for "
+          f"{stats['megas']} megas")
+    launches = {k: rise[k] + cap["launches"][k] * replays for k in rise}
+    steps_run = DL_STEPS * DL_K * stats["megas"]
+    want = {"fused_mha": MHA_PER_ENCODE * (1 + stats["refills"]),
+            "stack_step": steps_run, "combine_copy_mass": steps_run,
+            "single_query_mha": 2 * DEC_LAYERS * steps_run,
+            "additive_scores": 2 * steps_run}
+    check(launches == want and DL_STEPS * stats["chunks"] <= steps_run,
+          f"device loop launches {launches}, expected {want} (chunks "
+          f"{stats['chunks']})")
+    same_as(got, chunk_base, "base")
+    res = {"config": {"batch": B, "steps_a_chunk": DL_STEPS,
+                      "chunks_a_mega": DL_K, "ring": DL_RING,
+                      "refill": REFILL, "lookahead": True},
+           "warm_up": warm, "base": dict(with_occupancy(stats),
+                                         launches=launches),
+           "capture": dict(cap, replays_in_base=replays)}
+    got, res["no_lookahead"] = device(fns, lookahead=False)
+    same_as(got, chunk_base, "without lookahead")
+
+    # the round's host side waits for nothing (the graph exists already)
+    def checked(fn):
+        def run(*args, **kw):
+            with no_host_sync():
+                return fn(*args, **kw)
+        return run
+
+    names = ("init_fn", "wrap_fn", "stage_fn", "push_fn", "mega_fn")
+    real_copy = cbase.HostCopy.__init__
+    for name in names:
+        setattr(fns, name, checked(getattr(fns, name)))
+    cbase.HostCopy.__init__ = checked(real_copy)
+    try:
+        got, res["no_host_sync"] = device(fns)
+    finally:
+        cbase.HostCopy.__init__ = real_copy
+        for name in names:
+            delattr(fns, name)
+    same_as(got, chunk_base, "under no_host_sync")
+
+    # an encode issued while the card is busy returns before the card ends
+    bucket = make_batch([{"i": i} for i in range(REFILL)], REFILL)
+    fns.init_fn(bucket)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    t0 = time.perf_counter()
+    fns.init_fn(bucket)
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    res["encode_behind_spin"] = {
+        "host_ms": issue_ms,
+        "then_waited_ms": (time.perf_counter() - t1) * 1e3}
+
+    # one mega's device time (a mega runs all its chunks whatever the rows
+    # hold, so a replay on a fresh lane state times any mega)
+    state, _ = fns.init_fn(make_batch([{"i": i} for i in range(B)], B))
+    wrap = fns.wrap_fn(state, np.arange(B), np.ones(B, bool))
+    stage = fns.stage_fn(state, np.full(B, -1))
+    res["mega_device_ms"] = device_ms(lambda: fns.mega_fn(wrap, stage, 0),
+                                      iters=5)
+    del state, wrap, stage
+
+    # requests/s in turns: chunk, device, device, chunk
+    res["turns"] = []
+    for name in ("chunk", "device", "device", "chunk"):
+        if name == "chunk":
+            got, st = chunk()
+            same_as(got, chunk_base, "chunk loop again")
+        else:
+            got, st = device(fns)
+            same_as(got, chunk_base, "again")
+        res["turns"].append({"loop": name, "requests_per_s":
+                             st["requests_per_s"], "wall_s": st["wall_s"]})
+    for name in ("chunk", "device"):
+        qps = [t["requests_per_s"] for t in res["turns"] if t["loop"] == name]
+        res[f"{name}_requests_per_s"] = float(np.mean(qps))
+    res["speedup"] = res["device_requests_per_s"] / res["chunk_requests_per_s"]
+    res["profile"] = profile_device(lambda k: device(fns, k=k), [n // 2])
+    res["chunk_profile"] = profile_device(lambda k: chunk(k=k), [n // 2])
+
+    # sampled: the sampled chunk loop's answers with the same keys
+    sfns = loop_fns(decoding="sample", **SAMPLE_CONTROLS)
+    smb = batch_maker(reqs, caps, sample_keys(n))
+    device(sfns, mb=smb)
+    got, res["sampled"] = device(sfns, mb=smb)
+    same_as(got, sampled_base, "sampled")
+    res["sampled"]["capture"] = sfns.captures[0]
+
+    # multi-lane over the pool buckets, one DeviceLoopFns for both lanes
+    used = (reqs["passage"] != 0).any(-1).sum(-1)
+    bucket_batch = {p: batch_maker(dict(reqs, passage=reqs["passage"][:, :p]),
+                                   caps) for p in BUCKETS}
+
+    def multi():
+        lanes = {p: DeviceLane(p, bucket_batch[p], fns, batch_size=B,
+                               refill=REFILL) for p in BUCKETS}
+        route = lambda r: lanes[min(p for p in BUCKETS if used[r["i"]] <= p)]
+        return timed(lambda emit: run_continuous_device_multi(
+            items(n), list(lanes.values()), route, emit=emit, max_len=T_ANS,
+            lookahead=True), n)
+
+    multi()                                       # warm-up: the small lane
+    got, res["multi_lane"] = multi()
+    full = [i for i in range(n) if used[i] > BUCKETS[0]]
+    same_as({i: got[i] for i in full}, chunk_base, "multi-lane, full bucket")
+    res["multi_lane"]["small_bucket_vs_chunk_base"] = answer_agreement(
+        {i: got[i] for i in range(n) if used[i] <= BUCKETS[0]}, chunk_base,
+        caps, cfg.eos_id)
+    res["multi_lane"]["captures"] = len(fns.captures)
+
+    # the knee: requests/s over (steps a chunk, chunks a mega)
+    res["knee"] = []
+    for steps, k in DL_KNEE:
+        kfns = fns if (steps, k) == (DL_STEPS, DL_K) else loop_fns(steps, k)
+        device(kfns)
+        got, st = device(kfns)
+        same_as(got, chunk_base, f"steps {steps}, K {k}")
+        res["knee"].append(dict(with_occupancy(st, steps, k), steps=steps,
+                                chunks_a_mega=k,
+                                capture_s=kfns.captures[0]["capture_s"]))
+    res["pool_bytes"] = [c["pool_bytes"] for f in made for c in f.captures]
     return res
 
 
@@ -2249,12 +2482,16 @@ def main() -> int:
     print("combine_copy_mass by_ls: " + json.dumps(combine_by_ls), flush=True)
     modes = serve_argmax_modes(dev, cfg, model, reqs)
     print("argmax modes: " + json.dumps(modes), flush=True)
-    cont = serve_continuous(dev, cfg, model, reqs, caps)
+    cont, cont_base = serve_continuous(dev, cfg, model, reqs, caps)
     print("continuous serving: " + json.dumps(cont), flush=True)
     decoding = serve_decoding(dev, cfg, model, reqs)
     print("beam and sampling: " + json.dumps(decoding), flush=True)
-    sampled = serve_continuous_sampled(dev, cfg, model, reqs, caps)
+    sampled, sampled_base = serve_continuous_sampled(dev, cfg, model, reqs,
+                                                     caps)
     print("sampled continuous serving: " + json.dumps(sampled), flush=True)
+    dloop = serve_device_loop(dev, cfg, model, reqs, caps, cont_base,
+                              sampled_base)
+    print("device-loop serving: " + json.dumps(dloop), flush=True)
     tmha = train_attention_phase(dev, gen, instances)
     train = train_case(dev)
     print("case training: " + json.dumps(train), flush=True)
