@@ -59,10 +59,11 @@ def state_dict_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
     return out
 
 
-def load_jax_params(model: torch.nn.Module, tree: Mapping) -> None:
-    """Copy a JAX param tree into ``model``'s parameters (cast to each
-    parameter's dtype and device)."""
-    sd = state_dict_from_jax(tree)
+def load_state(model: torch.nn.Module, sd: Mapping) -> None:
+    """Copy a state dict (port parameter name -> array or tensor) into
+    ``model``'s parameters, cast to each parameter's dtype and device.
+    Strict: an unused name, a parameter left unset or a shape mismatch
+    raises."""
     params = dict(model.named_parameters())
     unused = sorted(set(sd) - set(params))
     unset = sorted(set(params) - set(sd))
@@ -76,4 +77,12 @@ def load_jax_params(model: torch.nn.Module, tree: Mapping) -> None:
     with torch.no_grad():
         for name, arr in sd.items():
             p = params[name]
-            p.copy_(torch.tensor(arr, dtype=p.dtype, device=p.device))
+            src = arr if isinstance(arr, torch.Tensor) else \
+                torch.tensor(np.asarray(arr))
+            p.copy_(src.to(device=p.device, dtype=p.dtype))
+
+
+def load_jax_params(model: torch.nn.Module, tree: Mapping) -> None:
+    """Copy a JAX param tree into ``model``'s parameters (cast to each
+    parameter's dtype and device)."""
+    load_state(model, state_dict_from_jax(tree))

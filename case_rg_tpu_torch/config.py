@@ -1,11 +1,33 @@
 """Configuration: the port's own copies of ``case_rg_tpu.config.
-ModelConfig`` and of the train step's part of ``TrainConfig`` (same fields
-and defaults, so a JAX config's values carry over one for one)."""
+DataConfig`` and ``ModelConfig`` and of the train step's part of
+``TrainConfig`` (same fields and defaults, so a JAX config's values carry
+over one for one)."""
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Offline featurization constants (ref: Prepare_dataset.py:13-20)."""
+
+    dataset: str = "cast"
+    data_path: str = "./dataset/"
+    query_len: int = 60
+    passage_len: int = 100
+    num_passage: int = 10
+    max_span_size: int = 4
+    answer_len: int = 40          # max_target_length in the reference
+    min_window_size: int = 4      # GLKS
+    num_windows: int = 1          # GLKS
+    pool_topk: int = 10
+    pool_candidates: int = 100    # load_pool(topk=10*topk) (Prepare_dataset.py:153)
+    vocab_file: Optional[str] = None   # BERT-style vocab.txt; None => corpus vocab
+    vocab_min_freq: int = 1
+    seed: int = 123456
 
 
 @dataclass(frozen=True)

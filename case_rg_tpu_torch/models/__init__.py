@@ -63,6 +63,13 @@ def perturb_affine(module: nn.Module, generator: torch.Generator,
                 p.copy_(noise(p))
 
 
+def build_model_cfg(base: ModelConfig, name: str, vocab) -> ModelConfig:
+    """Fill vocabulary-dependent fields of a ModelConfig."""
+    return base.replace(name=name, vocab_size=len(vocab),
+                        pad_id=vocab.pad_id, bos_id=vocab.bos_id,
+                        unk_id=vocab.unk_id, eos_id=vocab.eos_id)
+
+
 def create_model(name: str, cfg: ModelConfig, *, device="cuda",
                  seed: int = 0) -> nn.Module:
     """Build ``name`` with weights drawn from ``seed`` on ``device`` (in

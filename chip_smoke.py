@@ -101,7 +101,30 @@ In order it
      beside the host time of an encode issued behind a spin kernel,
      capture seconds and pool bytes, and requests/s at (4, 8), (8, 4) and
      (4, 16) steps and chunks ("device-loop serving");
- 11. trains CaSE at the same widths (dropout 0.1, B=64 batches with a
+ 11. serves CaSE from text through cli/serve's ``main``, in process
+     ("text serving"): a vocab.txt of exactly V=30522 wordpieces (specials,
+     punctuation, "##" pieces, synthetic words, from seed 0), a checkpoint
+     in the port's format (``train/checkpoint.save_checkpoint``) of f32 CaSE
+     from seed 0 with noisy biases and gains, and 256 text requests from
+     seed 3 (a history of 0-2 turns; 5 passages for a third of them, 10 for
+     the rest, sentences joined by ". "; ``max_tokens`` over 8-40). Four
+     modes, each run twice (the second under torch.profiler, its answers
+     equal to the first's), all with --bf16, B=64 and --warmup: (a)
+     batched greedy, equal to ``make_predict_fn`` on ``chunk_to_batch`` of
+     the same requests; (b) --continuous --fast_argmax pallas
+     --pool_buckets 5,10, equal to ``run_continuous_multi`` driven directly
+     on the same batches; (c) the same through --device_loop 8
+     --chunk_steps 4 --lookahead, equal to (b); (d) (c) behind --listen,
+     eight client threads POSTing the requests four to a POST, every
+     response equal to (c)'s, /healthz and /varz answering. Token for token
+     as detokenized, ranking for ranking. Per mode it prints requests/s
+     over the serving window (after the load and warm-up), the host ms per
+     request in ``featurize_requests`` split into the tokenizer's batch
+     call and ``data.featurize``, ``chunk_to_batch`` ms at 16 and 64 rows,
+     whether the native tokenizer loaded, the window's launches (each
+     kernel's counter set to 0 at its start; graph replays x recorded
+     launches added) and the device's idle share;
+ 12. trains CaSE at the same widths (dropout 0.1, B=64 batches with a
      response, passage and token labels; f32 masters, bf16 compute) through
      the train step of case_rg_tpu_torch.train.trainer. First it holds the
      four training-attention kernels (forward and backward of
@@ -119,7 +142,7 @@ In order it
      counters set to 0 just before, read just after; the loss must fall),
      the same 10 steps with the plain versions, profiles two steps with
      torch.profiler, and runs one step under no_host_sync;
- 12. prints one JSON line {"kernels": [...]} and, last, the device line
+ 13. prints one JSON line {"kernels": [...]} and, last, the device line
      {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -129,6 +152,7 @@ case_rg_tpu_torch package beside it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -2009,6 +2033,500 @@ def serve_device_loop(dev, cfg, model, reqs, caps, chunk_base, sampled_base):
     return res
 
 
+# ---- phase 11: CaSE served from text through cli/serve ----
+
+N_TEXT = 256                   # text requests, from seed 3
+TEXT_DIR = os.path.join(ROOT, "build", "text_serving")   # .gitignore: build/
+TEXT_CLIENTS, TEXT_LINES = 8, 4    # HTTP: client threads, requests a POST
+SPECIAL_WORDS = ("[PAD]", "[unused0]", "[UNK]", "[unused1]", "[SEP]",
+                 "[CLS]", "[MASK]")
+TEXT_PUNCT = tuple(".,?!;:'()-")
+TEXT_PIECES = 4000             # "##" continuation pieces in the vocabulary
+
+
+def text_vocab(path: str):
+    """A vocab.txt of exactly V wordpieces (the specials, punctuation,
+    TEXT_PIECES "##" pieces and synthetic words, from seed 0); returns the
+    words and the pieces."""
+    rng = np.random.RandomState(0)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    pieces, words = set(), set()
+    while len(pieces) < TEXT_PIECES:
+        pieces.add("##" + "".join(rng.choice(letters, rng.randint(1, 5))))
+    n_words = V - len(SPECIAL_WORDS) - len(TEXT_PUNCT) - TEXT_PIECES
+    while len(words) < n_words:
+        words.add("".join(rng.choice(letters, rng.randint(2, 10))))
+    words, pieces = sorted(words), sorted(pieces)
+    lines = list(SPECIAL_WORDS) + list(TEXT_PUNCT) + pieces + words
+    check(len(lines) == V and len(set(lines)) == V, "text vocab: not V words")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return words, pieces
+
+
+def text_requests(words, pieces, n: int):
+    """``n`` requests from seed 3: a history of 0-2 turns, a query, and 5
+    (a third of them) or 10 passages of 3-6 sentences joined by ". ",
+    their words drawn from the vocabulary (one in eight glued to a "##"
+    piece, which the tokenizer splits again); ``max_tokens`` over 8-40."""
+    rng = np.random.RandomState(3)
+    words = np.array(words)
+    tails = [p[2:] for p in pieces]
+
+    def sent(lo, hi):
+        ws = list(rng.choice(words, rng.randint(lo, hi + 1)))
+        for i in np.flatnonzero(rng.rand(len(ws)) < 0.125):
+            ws[i] += tails[rng.randint(len(tails))]
+        return " ".join(ws)
+
+    reqs = []
+    for i in range(n):
+        n_pass = 5 if i % 3 == 0 else P
+        reqs.append({
+            "id": f"t{i}",
+            "history": [sent(4, 12) + " ?" for _ in range(rng.randint(3))],
+            "query": sent(4, 14) + " ?",
+            "passages": [". ".join(sent(6, 22) for _ in range(
+                rng.randint(3, 7))) + "." for _ in range(n_pass)],
+            "max_tokens": int(rng.randint(8, T_ANS + 1))})
+    return reqs
+
+
+def text_responses(chunk, answer, rank, vocab, num_passage):
+    """What cli/serve answers for a chunk from its predict outputs (host
+    arrays): answers cut at each request's cap and detokenized, passages
+    ranked by score."""
+    from case_rg_tpu_torch.runtime.io import ids_to_sentence, remove_duplicate
+    sents = [ids_to_sentence(row[:max(min(r["max_tokens"], len(row)), 1)],
+                             vocab) for row, r in zip(answer, chunk)]
+    remove_duplicate(sents)
+    out = []
+    for r, s, sc in zip(chunk, sents, rank):
+        n_real = min(len(r["passages"]), num_passage)
+        order = np.argsort(-np.asarray(sc, np.float32)[:max(n_real, 1)],
+                           kind="stable")
+        out.append({"id": r["id"], "answer": vocab.detokenizer()(s),
+                    "ranking": [int(j) for j in order[:n_real]]})
+    return out
+
+
+class DeviceTrace:
+    """torch.profiler's device activity (CUPTI) over a block, kept as the
+    profiler's raw result: torch.profiler's own exit may build a Python
+    record of every event, which took over a minute for the kernels of a
+    whole HTTP run on an H100."""
+
+    def __enter__(self):
+        from torch.autograd import (ProfilerActivity, _enable_profiler,
+                                    _prepare_profiler)
+        from torch.autograd.profiler import profile
+        config = profile(use_kineto=True).config()
+        _prepare_profiler(config, {ProfilerActivity.CUDA})
+        _enable_profiler(config, {ProfilerActivity.CUDA})
+        return self
+
+    def __exit__(self, *exc):
+        from torch.autograd import _disable_profiler
+        torch.cuda.synchronize()
+        self.events = _disable_profiler().events()
+        return False
+
+
+class TextRun:
+    """One in-process run of cli/serve's ``main``: the serving window's
+    host seconds (around the offline serving loop, after the checkpoint
+    load and the warm-up), launches in the window (counters set to 0 at
+    its start; the device loop's graph replays x the launches each capture
+    recorded added), host time in ``featurize_requests`` split into the
+    tokenizer's batch call and ``data.featurize``, and, with ``profiled``,
+    the profiler's device activity over the window."""
+
+    def __init__(self, profiled: bool = False):
+        self.fns = []
+        self.active = False       # host timers count inside the window only
+        self.call_s = None        # the whole main() call
+        self.reset(profiled)
+
+    def reset(self, profiled: bool) -> None:
+        """Ready for a new window (the spies' captures are kept)."""
+        self.profiled = profiled
+        self.wall_s = self.launches = self.prof = self.trace_s = None
+        self.host = {"featurize_requests": 0.0, "tokenize": 0.0,
+                     "featurize": 0.0, "requests": 0}
+
+    def window(self, fn):
+        """``fn`` (a serving loop) timed, counted and maybe profiled."""
+        from case_rg_tpu_torch.runtime import graphs
+
+        def run(*a, **kw):
+            prof = DeviceTrace() if self.profiled else None
+            torch.cuda.synchronize()
+            for mod in graph_counters():
+                mod.LAUNCHES = 0
+            replays0 = [c["replays"] for f in self.fns for c in f.captures]
+            n_caps = [len(f.captures) for f in self.fns]
+            if prof is not None:
+                prof.__enter__()
+            self.active = True
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                self.wall_s = time.perf_counter() - t0
+                self.active = False
+                if prof is not None:
+                    t1 = time.perf_counter()
+                    prof.__exit__(None, None, None)
+                    self.prof = prof
+                    self.trace_s = time.perf_counter() - t1
+                rise = graphs.launch_counts()
+                caps = [c for f in self.fns for c in f.captures]
+                check([len(f.captures) for f in self.fns] == n_caps,
+                      "text serving: a graph was captured inside the window")
+                for c, r0 in zip(caps, replays0):
+                    for k in rise:
+                        rise[k] += c["launches"][k] * (c["replays"] - r0)
+                self.launches = rise
+        return run
+
+    def timer(self, key, count=False):
+        def wrap(fn):
+            def timed(*a, **kw):
+                if not self.active:
+                    return fn(*a, **kw)
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    self.host[key] += time.perf_counter() - t0
+                    if count:
+                        self.host["requests"] += len(a[0])
+            return timed
+        return wrap
+
+    def spy_fns(self, make):
+        def made(*a, **kw):
+            fns = make(*a, **kw)
+            self.fns.append(fns)
+            return fns
+        return made
+
+    def patch(self, stack, offline: bool = True) -> None:
+        """Enter the timers and spies on ``stack`` (``mock.patch.object``
+        of each wrapped callable); ``offline``: the offline loops' windows too."""
+        from unittest import mock
+        from case_rg_tpu_torch.cli import serve as cli
+        from case_rg_tpu_torch.data import text
+        from case_rg_tpu_torch.runtime.continuous import device_loop
+        from case_rg_tpu_torch.serving import featurize as sf
+        wraps = [(sf, "featurize_requests",
+                  self.timer("featurize_requests", count=True)),
+                 (sf, "featurize", self.timer("featurize")),
+                 (text.WordPieceTokenizer, "batch", self.timer("tokenize")),
+                 (device_loop, "make_device_loop_fns", self.spy_fns)]
+        if offline:
+            wraps += [(cli, "run_offline_batched", self.window),
+                      (cli, "run_offline_continuous", self.window)]
+        for owner, name, wrap in wraps:
+            stack.enter_context(mock.patch.object(
+                owner, name, wrap(getattr(owner, name))))
+
+    def report(self, n: int) -> dict:
+        h = self.host
+        per = 1e3 / max(h["requests"], 1)
+        out = {"requests_per_s": n / self.wall_s, "wall_s": self.wall_s,
+               "featurize_ms_per_request": {
+                   "total": h["featurize_requests"] * per,
+                   "tokenize": h["tokenize"] * per,
+                   "featurize": h["featurize"] * per,
+                   "other": (h["featurize_requests"] - h["tokenize"]
+                             - h["featurize"]) * per},
+               "featurized_requests": h["requests"],
+               "launches": self.launches}
+        if self.fns:
+            out["captures"] = [dict(c) for f in self.fns for c in f.captures]
+        if self.prof is not None:
+            t0 = time.perf_counter()
+            out["profile"] = profile_window(self.prof.events, self.wall_s)
+            out["profile"]["trace_s"] = self.trace_s + time.perf_counter() - t0
+        out["call_s"] = self.call_s
+        return out
+
+
+def graph_counters():
+    from case_rg_tpu_torch.kernels import (additive_attention, copy_argmax,
+                                           decode_attention, decoder_stack,
+                                           encoder_attention)
+    return (encoder_attention, decoder_stack, copy_argmax, decode_attention,
+            additive_attention)
+
+
+def profile_window(events, wall_s: float) -> dict:
+    """Device busy ms and idle share of a profiled window, and its top
+    kernels, summed from the profiler's raw device events."""
+    from torch.autograd import DeviceType
+    by_name = {}
+    for e in events:
+        if e.device_type() == DeviceType.CUDA:
+            ms, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    busy = sum(ms for ms, _ in by_name.values())
+    check(busy > 0, "text serving profile: no device time recorded")
+    top = sorted(((ms, n, k[:80]) for k, (ms, n) in by_name.items()),
+                 reverse=True)[:6]
+    return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / (wall_s * 1e3),
+            "top_kernels": [{"name": k, "ms": ms, "launches": n}
+                            for ms, n, k in top]}
+
+
+def serve_text_mode(common, extra, out_path, profiled=False):
+    """cli/serve ``main`` on the requests file: (responses, TextRun)."""
+    from case_rg_tpu_torch.cli.serve import main as serve_main
+    run = TextRun(profiled)
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        run.patch(stack)
+        serve_main(common + extra + ["--output", out_path])
+    run.call_s = time.perf_counter() - t0
+    with open(out_path) as f:
+        return [json.loads(x) for x in f], run
+
+
+def serve_text_http(common, extra, reqs, n: int):
+    """cli/serve ``main`` with ``--listen`` in a thread; TEXT_CLIENTS client
+    threads POST the requests TEXT_LINES to a POST, twice (the second time
+    under the profiler), each window on the clients' clock. Returns the
+    {id: response} maps of both rounds, the mode's report and /varz after
+    the first round."""
+    import threading
+    import urllib.request
+    from case_rg_tpu_torch.cli.serve import main as serve_main
+    run = TextRun()
+    stack = contextlib.ExitStack()
+    run.patch(stack, offline=False)
+    holder, ready = {}, threading.Event()
+
+    def on_ready(server):
+        holder["server"] = server
+        ready.set()
+
+    t0 = time.perf_counter()
+    server = threading.Thread(target=serve_main, args=(
+        common + extra + ["--listen", "127.0.0.1:0"],),
+        kwargs={"_server_ready": on_ready}, daemon=True)
+    server.start()
+    rounds, reports, errors = [], [], []
+    try:
+        check(ready.wait(timeout=300), "text serving: server did not come up")
+        host, port = holder["server"].server_address[:2]
+        base = f"http://{host}:{port}"
+
+        def get(path):
+            with urllib.request.urlopen(base + path, timeout=60) as r:
+                return r.read().decode()
+
+        check(get("/healthz") == "ok\n", "text serving: /healthz")
+        posts = [reqs[i:i + TEXT_LINES]
+                 for i in range(0, len(reqs), TEXT_LINES)]
+
+        def client(c, got):
+            try:
+                for lines in posts[c::TEXT_CLIENTS]:
+                    data = "".join(json.dumps(x) + "\n"
+                                   for x in lines).encode()
+                    rq = urllib.request.Request(base + "/", data=data,
+                                                method="POST")
+                    with urllib.request.urlopen(rq, timeout=300) as r:
+                        for x in r.read().decode().splitlines():
+                            resp = json.loads(x)
+                            got[resp["id"]] = resp
+            except Exception as e:        # reported by the main thread
+                errors.append(repr(e))
+
+        def clients(got):
+            threads = [threading.Thread(target=client, args=(c, got))
+                       for c in range(TEXT_CLIENTS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+
+        for profiled in (False, True):
+            run.reset(profiled)
+            rounds.append({})
+            run.window(clients)(rounds[-1])
+            reports.append(run.report(n))
+            if not profiled:
+                varz = json.loads(get("/varz"))
+    finally:
+        if "server" in holder:
+            holder["server"].shutdown()
+        server.join(timeout=60)
+        stack.close()
+    check(not server.is_alive(), "text serving: the server did not stop")
+    check(not errors, f"text serving: client errors {errors[:3]}")
+    report = dict(reports[0], profiled=reports[1],
+                  call_s=time.perf_counter() - t0)
+    return rounds, report, varz
+
+
+def same_responses(got, want, what):
+    """Token for token (as detokenized) and ranking for ranking."""
+    bad = [w["id"] for w, g in zip(want, got) if g != w]
+    check(len(got) == len(want) and not bad,
+          f"text serving {what}: {len(bad)} of {len(want)} responses differ "
+          f"(first: {bad[:3]}), {len(got)} responses")
+
+
+def serve_text(dev):
+    """CaSE served from text (phase 11): a vocabulary of V wordpieces, a
+    checkpoint in the port's format, 256 text requests, and cli/serve's
+    ``main`` in four modes, each gated as PERF.md section 2 says."""
+    import dataclasses
+    import shutil
+    from case_rg_tpu_torch import native
+    from case_rg_tpu_torch.config import DataConfig, ModelConfig
+    from case_rg_tpu_torch.data.vocab import Vocabulary
+    from case_rg_tpu_torch.models import (build_model_cfg, create_model,
+                                          perturb_affine)
+    from case_rg_tpu_torch.runtime.continuous import (Lane,
+                                                      make_continuous_fns,
+                                                      run_continuous_multi)
+    from case_rg_tpu_torch.runtime.inference import make_predict_fn
+    from case_rg_tpu_torch.serving.featurize import bucket_for, chunk_to_batch
+    from case_rg_tpu_torch.train.checkpoint import save_checkpoint
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(TEXT_DIR, ignore_errors=True)
+    prep, out = os.path.join(TEXT_DIR, "prepared"), os.path.join(TEXT_DIR,
+                                                                 "out")
+    os.makedirs(prep)
+    words, pieces = text_vocab(os.path.join(prep, "vocab.txt"))
+    vocab = Vocabulary.load(os.path.join(prep, "vocab.txt"))
+    reqs = text_requests(words, pieces, N_TEXT)
+    n = len(reqs)
+    req_path = os.path.join(TEXT_DIR, "requests.jsonl")
+    with open(req_path, "w") as f:
+        for r in reqs:
+            f.write(json.dumps(r) + "\n")
+    cfg = build_model_cfg(ModelConfig(embedding_size=E, hidden_size=E,
+                                      num_heads=H, max_target_length=T_ANS,
+                                      max_dec_len=T_ANS), "case", vocab)
+    model = create_model("case", cfg, device=dev, seed=0)
+    perturb_affine(model, torch.Generator(device=dev).manual_seed(1))
+    params = dict(model.named_parameters())
+    save_checkpoint(out, 0, {"params": params, "ema": params, "step": 0})
+    del params
+    model = model.to(torch.bfloat16)         # as --bf16 casts at load
+    cfg = cfg.replace(param_dtype="bfloat16")
+    dcfg = DataConfig(query_len=LQ, passage_len=LP, num_passage=P,
+                      answer_len=T_ANS)
+    res = {"requests": n, "native_tokenizer": native.available(),
+           "setup_s": time.perf_counter() - t_phase}
+
+    # host ms of chunk_to_batch at 16 and 64 rows (median of 3)
+    res["chunk_to_batch_ms"] = {}
+    for rows in (16, 64):
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            chunk_to_batch(reqs[:rows], "case", vocab, dcfg, rows)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        res["chunk_to_batch_ms"][rows] = sorted(ts)[1]
+
+    common = ["--model", "case", "--prepared_dir", prep, "--output_path",
+              out, "--input", req_path, "--bf16", "--batch_size", str(B),
+              "--warmup"]
+    modes = {
+        "a_batched": [],
+        "b_continuous": ["--continuous", "--fast_argmax", "pallas",
+                         "--pool_buckets", "5,10"],
+        "c_device_loop": ["--continuous", "--device_loop", "8",
+                          "--chunk_steps", "4", "--fast_argmax", "pallas",
+                          "--pool_buckets", "5,10", "--lookahead"]}
+    got, runs = {}, {}
+    for name, extra in modes.items():
+        path = os.path.join(TEXT_DIR, f"{name}.jsonl")
+        got[name], run = serve_text_mode(common, extra, path)
+        again, prof = serve_text_mode(common, extra, path, profiled=True)
+        same_responses(again, got[name], f"{name}: a second run")
+        runs[name] = dict(run.report(n), profiled=prof.report(n),
+                          chunk_to_batch_ms=res["chunk_to_batch_ms"],
+                          native_tokenizer=res["native_tokenizer"])
+        print(f"text serving {name}: " + json.dumps(runs[name]), flush=True)
+
+    # (a) = make_predict_fn on chunk_to_batch of the same requests
+    t_ref = time.perf_counter()
+    predict = make_predict_fn(model, cfg, T_ANS, early_exit=True, device=dev)
+    want = []
+    for i in range(0, n, B):
+        chunk = reqs[i:i + B]
+        o = predict(chunk_to_batch(chunk, "case", vocab, dcfg, B))
+        want += text_responses(chunk, o["answer"].cpu().numpy(),
+                               o["rank"].float().cpu().numpy(), vocab, P)
+    same_responses(got["a_batched"], want, "(a) batched vs make_predict_fn")
+
+    # (b) = run_continuous_multi driven directly on the same batches
+    init_fn, chunk_fn, refill_fn = make_continuous_fns(
+        model, T_ANS, 8, fast_argmax="pallas", device=dev)
+    buckets = [5, P]
+    lanes = {k: Lane(k, (lambda dk: lambda c, w: chunk_to_batch(
+        c, "case", vocab, dk, w))(dataclasses.replace(dcfg, num_passage=k)),
+        init_fn, chunk_fn, refill_fn, B, B // 4) for k in buckets}
+    direct = {}
+    run_continuous_multi(
+        iter(reqs), list(lanes.values()),
+        lambda r: lanes[bucket_for(len(r["passages"]), buckets)],
+        lambda r, ids, rk: direct.__setitem__(r["id"], text_responses(
+            [r], ids[None], rk[None], vocab,
+            bucket_for(len(r["passages"]), buckets))[0]))
+    same_responses(got["b_continuous"], [direct[r["id"]] for r in reqs],
+                   "(b) continuous vs run_continuous_multi")
+    # (c) = (b), token for token
+    same_responses(got["c_device_loop"], got["b_continuous"],
+                   "(c) device loop vs (b)")
+    res["references_s"] = time.perf_counter() - t_ref
+
+    # (d) HTTP, 8 clients, lines of 4: every response = (c)'s
+    rounds, report, varz = serve_text_http(common, modes["c_device_loop"],
+                                           reqs, n)
+    for i, http in enumerate(rounds):
+        same_responses([http.get(r["id"]) for r in reqs],
+                       got["c_device_loop"], f"(d) HTTP round {i} vs (c)")
+    check(varz["requests_served"] == n and varz["errors"] == 0,
+          f"text serving (d): /varz {varz}")
+    runs["d_http"] = dict(report, chunk_to_batch_ms=res["chunk_to_batch_ms"],
+                          native_tokenizer=res["native_tokenizer"],
+                          varz={k: varz[k] for k in (
+                              "requests_served", "batches", "errors",
+                              "request_latency_s") if k in varz})
+    print("text serving d_http: " + json.dumps(runs["d_http"]), flush=True)
+
+    # every serving kernel of a mode launched in its window, in the counts
+    # its decode steps give: a step launches combine_copy_mass once in the
+    # pallas modes, additive_scores twice and single_query_mha 8 times (the
+    # query-memory stack); on the 1000-position pool stack_step once, on
+    # the 5-passage lane's 500 positions (under the fused stack's 512)
+    # single_query_mha 8 times more instead; fused_mha 19 times an encode
+    for name, r in runs.items():
+        n = r["launches"]
+        steps = n["stack_step"] if name == "a_batched" else \
+            n["combine_copy_mass"]
+        chain = steps - n["stack_step"]
+        check(steps > 0 and n["stack_step"] > 0 and chain >= 0
+              and (chain > 0) == (name != "a_batched")
+              and n["single_query_mha"] == 2 * DEC_LAYERS * (steps + chain)
+              and n["additive_scores"] == 2 * steps
+              and n["fused_mha"] > 0 and n["fused_mha"] % MHA_PER_ENCODE == 0,
+              f"text serving {name}: launches {n}")
+    shutil.rmtree(TEXT_DIR, ignore_errors=True)
+    res["modes"] = runs
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
 # ---- phase 8: training ----
 
 VARIANTS = {"mask": False, "rng": True}     # kernel variant -> in-kernel RNG
@@ -2492,6 +3010,9 @@ def main() -> int:
     dloop = serve_device_loop(dev, cfg, model, reqs, caps, cont_base,
                               sampled_base)
     print("device-loop serving: " + json.dumps(dloop), flush=True)
+    text = serve_text(dev)
+    print("text serving: " + json.dumps({k: v for k, v in text.items()
+                                          if k != "modes"}), flush=True)
     tmha = train_attention_phase(dev, gen, instances)
     train = train_case(dev)
     print("case training: " + json.dumps(train), flush=True)
