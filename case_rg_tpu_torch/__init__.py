@@ -10,8 +10,10 @@ on CaSE's serving and training paths are hand-written CUDA C++ under
 (``kernels/_build.py``).
 
 Entry points (``models.create_model``, ``runtime.inference.make_predict_fn``,
-``train.trainer.Trainer``) run on the card by default and raise when there
-is none, unless the caller passes ``device="cpu"``.
+``train.trainer.Trainer``, ``pipeline.Pipeline.from_checkpoint`` and the
+CLIs ``cli.serve`` and ``cli.run``) run on the card by default and raise
+when there is none, unless the caller passes ``device="cpu"`` (``--device
+cpu``). ``cli.prepare`` and ``cli.evaluate`` touch no device.
 """
 
 __version__ = "0.1.0"

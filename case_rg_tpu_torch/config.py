@@ -1,6 +1,6 @@
 """Configuration: the port's own copies of ``case_rg_tpu.config.
-DataConfig`` and ``ModelConfig`` and of the train step's part of
-``TrainConfig`` (same fields and defaults, so a JAX config's values carry
+DataConfig``, ``ModelConfig``, ``MODEL_NAMES`` and of the single-device part
+of ``TrainConfig`` (same fields and defaults, so a JAX config's values carry
 over one for one)."""
 
 from __future__ import annotations
@@ -67,11 +67,14 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """The train step's knobs: the port's copy of the fields of
-    ``case_rg_tpu.config.TrainConfig`` that the step reads, with the same
-    defaults."""
+    """The training loop's knobs: the port's copy of the fields of
+    ``case_rg_tpu.config.TrainConfig`` that one device reads, with the same
+    defaults. Left out: the mesh and sharding fields (ROADMAP Queue 1 item
+    7), ``remat`` and ``ckpt_backend`` (the port writes its own checkpoint
+    format only)."""
 
     batch_size: int = 16
+    epochs: int = 20
     learning_rate: float = 2.5e-4
     warmup_steps: int = 2000
     num_cycles: int = 1            # cosine-with-hard-restarts cycles
@@ -80,3 +83,14 @@ class TrainConfig:
     ema_decay: float = 0.995
     compute_dtype: str = "float32"   # "bfloat16": f32 masters, bf16 fwd/bwd
     seed: int = 123456
+    log_every: int = 100
+    checkpoint_every_steps: int = 0   # 0 = epoch-end only
+    output_path: str = "./output/"
+    resume: bool = True
+
+
+# The reference's per-dataset constructor defaults differ, but
+# Prepare_dataset.py:241-311 passes the same global constants
+# (query_len=60, passage_len=100, num_passage=10, max_target_length=40)
+# to every model's dataset, so featurization shapes are shared.
+MODEL_NAMES = ("case", "masque", "glks", "tmemnet", "gttp", "s2sa")

@@ -4,13 +4,13 @@ loss-identical to a ragged one:
 
 * ``nll_from_probs``: mean of -log(p + 1e-8) over non-PAD target tokens;
 * ``bce_with_logits``: elementwise sigmoid BCE, mean over all elements;
-* ``one_hot_labels``: the scatter(1, label, 1) one-hot.
+* ``one_hot_labels``: the scatter(1, label, 1) one-hot (zeros out of
+  range).
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 
 def _expand_weight(sample_weight, n: int, device) -> torch.Tensor:
@@ -41,5 +41,9 @@ def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def one_hot_labels(indices: torch.Tensor, num: int) -> torch.Tensor:
-    """scatter_(1, label, 1) one-hot, f32."""
-    return F.one_hot(indices.long(), num).float()
+    """scatter_(1, label, 1) one-hot, f32; an index outside [0, num) gives
+    a row of zeros, as ``jax.nn.one_hot`` does (a gold passage can sit past
+    the scored pool when the data was prepared with more pool passages
+    than ``num_passage``)."""
+    return (indices.long()[..., None]
+            == torch.arange(num, device=indices.device)).float()

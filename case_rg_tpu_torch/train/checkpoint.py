@@ -1,10 +1,17 @@
 """Checkpoints (port of ``case_rg_tpu/train/checkpoint.py``).
 
 The port writes its own format: ``model/{epoch}.pt``, a torch file of
-{"params", "ema"} state dicts (port parameter names, CPU tensors),
-"step", and "opt_state", which stays None until the port's training loop
-saves its optimiser. ``latest.json`` and ``best.json`` are the JSON
-pointers the JAX package writes.
+{"params", "ema"} state dicts (port parameter names, CPU tensors), "step"
+and "opt_state": the trainer's Adam moments {"mu", "nu"} (state dicts),
+"count" (updates applied) and "mini_step" (calls since the last update),
+and with gradient accumulation the running mean "acc" (see
+``train/trainer.TrainState``). A state without moments (serving's
+``{"params", "ema", "step"}``) is written with "opt_state" None. Each file
+is written under a temporary name and renamed, so a crash mid-write leaves
+no half checkpoint for resume to find. ``latest.json`` and ``best.json``
+are the JSON pointers the JAX package writes; salvage checkpoints
+(``{epoch}.preempt``, ``{epoch}.mid``) and ``avg`` are written with
+``update_latest=False``.
 
 ``load_checkpoint`` detects the format from what exists on disk, as the JAX
 package does. It also reads the JAX package's ``model/{epoch}.ckpt``: the
@@ -12,7 +19,8 @@ flax msgpack of its ``TrainState`` (``params``, ``opt_state``, ``ema``,
 ``step``), decoded here by ``msgpack_restore``, a small reader of the
 msgpack subset that ``flax.serialization.to_bytes`` writes, so neither
 ``msgpack`` nor ``flax`` is needed. Its ``params`` and ``ema`` trees go
-through the weight bridge (``bridge.state_dict_from_jax``). An
+through the weight bridge (``bridge.state_dict_from_jax``), and its optax
+state is mapped onto the port's fields (``_jax_opt_state``). An
 ``{epoch}.orbax`` directory (the JAX package's other backend) is not read.
 """
 
@@ -40,27 +48,45 @@ def _model_dir(output_path: str) -> str:
     return d
 
 
-def _field(state, name):
-    return state[name] if isinstance(state, dict) else getattr(state, name)
+def _field(state, name, default=None):
+    if isinstance(state, dict):
+        return state.get(name, default)
+    return getattr(state, name, default)
 
 
 def _cpu_state_dict(sd) -> dict:
     return {k: v.detach().to("cpu", copy=True) for k, v in sd.items()}
 
 
+def _opt_state(state) -> Optional[dict]:
+    """The optimiser's part of ``state`` as saved, or None without moments."""
+    mu = _field(state, "mu")
+    if mu is None:
+        return None
+    out = {"mu": _cpu_state_dict(mu), "nu": _cpu_state_dict(_field(state, "nu")),
+           "count": int(_field(state, "count")),
+           "mini_step": int(_field(state, "mini_step", 0))}
+    acc = _field(state, "acc")
+    if acc is not None:
+        out["acc"] = _cpu_state_dict(acc)
+    return out
+
+
 def save_checkpoint(output_path: str, epoch, state: Any,
                     update_latest: bool = True) -> str:
-    """Write ``state`` (a mapping or an object with ``params`` and ``ema``
-    state dicts and an integer ``step``, e.g. the trainer's
-    ``TrainState``) to ``model/{epoch}.pt``; returns the path.
+    """Write ``state`` (the trainer's ``TrainState``, or a mapping with
+    ``params`` and ``ema`` state dicts, an integer ``step`` and optionally
+    the optimiser fields) to ``model/{epoch}.pt``; returns the path.
     ``update_latest=False`` writes a salvage checkpoint without marking the
     epoch complete for resume."""
     d = _model_dir(output_path)
     path = os.path.join(d, f"{epoch}.pt")
+    tmp = path + ".tmp"
     torch.save({"params": _cpu_state_dict(_field(state, "params")),
                 "ema": _cpu_state_dict(_field(state, "ema")),
                 "step": int(_field(state, "step")),
-                "opt_state": None}, path)
+                "opt_state": _opt_state(state)}, tmp)
+    os.replace(tmp, path)
     if update_latest:
         with open(os.path.join(d, "latest.json"), "w") as f:
             json.dump({"epoch": epoch}, f)
@@ -76,8 +102,9 @@ def latest_epoch(output_path: str) -> Optional[int]:
 
 
 def save_best(output_path: str, epoch: int, dev_total: float) -> None:
-    """Record the best-dev-loss epoch (consumed by ``--epoch best`` at
-    serving)."""
+    """Record the best-dev-loss epoch (written by ``Trainer.fit`` whenever
+    the per-epoch dev loss improves; consumed by ``--epoch best`` at
+    serving and ``run --mode test --best_only``)."""
     d = os.path.join(output_path, "model")
     os.makedirs(d, exist_ok=True)
     with open(os.path.join(d, "best.json"), "w") as f:
@@ -85,11 +112,18 @@ def save_best(output_path: str, epoch: int, dev_total: float) -> None:
 
 
 def best_epoch(output_path: str) -> Optional[int]:
+    rec = best_epoch_record(output_path)
+    return None if rec is None else rec[1]
+
+
+def best_epoch_record(output_path: str) -> Optional[tuple]:
+    """(dev_total, epoch) of ``model/best.json``, or None."""
     p = os.path.join(output_path, "model", "best.json")
     if not os.path.exists(p):
         return None
     with open(p) as f:
-        return json.load(f)["epoch"]
+        rec = json.load(f)
+    return rec["dev_total"], rec["epoch"]
 
 
 def checkpoint_exists(output_path: str, epoch) -> bool:
@@ -109,11 +143,55 @@ def _f32_tree(tree):
     return tree
 
 
+def _port_state_dict(tree) -> dict:
+    """A JAX param-shaped tree (params, EMA, an Adam moment, accumulated
+    gradients) as a port state dict of f32 CPU tensors."""
+    return {k: torch.from_numpy(np.array(v, np.float32))
+            for k, v in state_dict_from_jax(_f32_tree(tree)).items()}
+
+
+def _jax_opt_state(opt) -> Optional[dict]:
+    """The JAX package's optax state (``make_optimizer``: ``chain(
+    clip_by_global_norm, adam(schedule))``, wrapped in ``MultiSteps`` when
+    accumulating; as decoded: tuples become {"0", "1"} maps, empty states
+    {}) mapped onto the port's "mu", "nu", "count", "mini_step" and, under
+    ``MultiSteps``, "acc". Adam's count, the schedule's count and
+    ``MultiSteps``' gradient_step must agree: the port keeps one count."""
+    if opt is None or opt == {}:
+        return None
+    out = {"mini_step": 0}
+    counts = []
+    if "inner_opt_state" in opt:            # optax.MultiSteps
+        out["mini_step"] = int(np.asarray(opt["mini_step"]))
+        counts.append(int(np.asarray(opt["gradient_step"])))
+        out["acc"] = _port_state_dict(opt["acc_grads"])
+        opt = opt["inner_opt_state"]
+    try:
+        clip, adam = opt["0"], opt["1"]
+        moments, schedule = adam["0"], adam["1"]
+        if clip not in ({}, None) or set(moments) != {"count", "mu", "nu"} \
+                or set(schedule) != {"count"}:
+            raise KeyError
+    except (KeyError, TypeError):
+        raise ValueError(
+            "checkpoint: the JAX opt_state is not make_optimizer's "
+            "chain(clip_by_global_norm, adam(schedule)) (optionally in "
+            f"MultiSteps); keys {sorted(opt) if isinstance(opt, dict) else opt!r}")
+    counts += [int(np.asarray(moments["count"])),
+               int(np.asarray(schedule["count"]))]
+    if len(set(counts)) != 1:
+        raise ValueError(f"checkpoint: the JAX optimiser's counts disagree "
+                         f"({counts}); the port keeps one count")
+    out.update(count=counts[0], mu=_port_state_dict(moments["mu"]),
+               nu=_port_state_dict(moments["nu"]))
+    return out
+
+
 def load_checkpoint(output_path: str, epoch) -> dict:
     """{"params", "ema"} (port parameter name -> CPU tensor), "step" and
-    "opt_state" (the JAX optimiser tree as decoded, or None) of epoch
-    ``epoch``, from the port's ``{epoch}.pt`` or the JAX package's
-    ``{epoch}.ckpt``, whichever exists."""
+    "opt_state" (the port's optimiser fields, or None) of epoch ``epoch``,
+    from the port's ``{epoch}.pt`` or the JAX package's ``{epoch}.ckpt``,
+    whichever exists."""
     d = os.path.join(output_path, "model")
     path = os.path.join(d, f"{epoch}.pt")
     if os.path.exists(path):
@@ -123,19 +201,16 @@ def load_checkpoint(output_path: str, epoch) -> dict:
     if os.path.exists(path):
         with open(path, "rb") as f:
             tree = msgpack_restore(f.read())
-
-        def params(name):
-            return {k: torch.from_numpy(np.array(v, np.float32))
-                    for k, v in state_dict_from_jax(
-                        _f32_tree(tree[name])).items()}
         step = tree.get("step")
-        return {"params": params("params"), "ema": params("ema"),
+        return {"params": _port_state_dict(tree["params"]),
+                "ema": _port_state_dict(tree["ema"]),
                 "step": None if step is None else int(np.asarray(step)),
-                "opt_state": tree.get("opt_state")}
+                "opt_state": _jax_opt_state(tree.get("opt_state"))}
     if os.path.isdir(os.path.join(d, f"{epoch}.orbax")):
         raise SystemExit(f"{path[:-5]}.orbax: orbax checkpoints are not read "
-                         "by the port (ROADMAP: open items); save with the "
-                         "msgpack backend")
+                         "by the port (ROADMAP Queue 1 item 2, orbax "
+                         "checkpoint directories); save with the msgpack "
+                         "backend")
     raise FileNotFoundError(f"no checkpoint for epoch {epoch!r} under {d}")
 
 

@@ -1,8 +1,11 @@
-"""The train step (port of the step of ``case_rg_tpu/train/trainer.py``).
+"""The trainer (port of ``case_rg_tpu/train/trainer.py``): the train step,
+the epoch loop with salvage checkpoints, ``fit`` with per-epoch dev loss,
+``resume_or_init``, the dev evaluation and the pipelined ``predict``.
 
-losses = model.train_losses(batch, gen) -> their f32 sum -> gradients ->
-global-norm clip -> Adam on a cosine-hard-restarts schedule -> EMA, with
-optax's semantics, which differ from ``torch.optim``'s defaults:
+The step: losses = model.train_losses(batch, gen) -> their f32 sum ->
+gradients -> global-norm clip -> Adam on a cosine-hard-restarts schedule
+-> EMA, with optax's semantics, which differ from ``torch.optim``'s
+defaults:
 
 * the clip scales by ``max_norm / norm`` only when ``norm >= max_norm``, with
   no epsilon (``clip_by_global_norm``);
@@ -15,22 +18,43 @@ optax's semantics, which differ from ``torch.optim``'s defaults:
 
 With ``compute_dtype="bfloat16"`` the f32 masters are cast to bf16 inside
 the differentiated function (``train/precision.py``) and the whole forward
-and backward run in bf16; losses are cast to f32 before the sum.
+and backward run in bf16; losses are cast to f32 before the sum. The dev
+evaluation runs in f32, as the JAX package's does.
 
 The state's tensors are updated in place (the masters are the model's own
 parameters), which saves a copy of every state tensor per step.
+
+Dropout: every mask of a step is drawn in order from one ``torch.Generator``
+on the device (``ops/dropout.py``, the training-attention seeds). ``fit``
+makes each epoch's generator from ``(seed, epoch)`` (``epoch_generator``),
+so a run resumed at epoch e draws what an unbroken run draws there, and a
+resume is bit-exact. The JAX loop instead splits one key chain from
+``PRNGKey(seed)`` anew at ``start_epoch`` (``case_rg_tpu/train/trainer.py:
+273-281``), so its resumed epochs draw other masks than its unbroken ones;
+and its streams (threefry or rbg) cannot be matched by Philox anyway.
 """
 
 from __future__ import annotations
 
+import os
+import signal
+import sys
+import time
+from collections import deque
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Callable, Dict, Iterable, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
+from ..bridge import load_state
 from ..config import TrainConfig
+from ..data.batching import Batcher
 from ..device import batch_to_device, resolve_device
+from ..runtime.continuous.base import HostCopy
+from .checkpoint import (best_epoch_record, checkpoint_exists, latest_epoch,
+                         load_checkpoint, save_best, save_checkpoint)
 from .precision import cast_params
 from .schedule import cosine_hard_restarts_with_warmup
 
@@ -43,10 +67,48 @@ class TrainState:
     mu: Dict[str, torch.Tensor]        # Adam moments
     nu: Dict[str, torch.Tensor]
     ema: Dict[str, torch.Tensor]
-    acc: Dict[str, torch.Tensor]       # running mean of the accumulated grads
+    acc: Optional[Dict[str, torch.Tensor]]   # the accumulated grads'
+    #                                  running mean (k > 1), else None
     count: int = 0                     # updates applied (Adam's count)
     mini_step: int = 0                 # calls since the last update
     step: int = 0                      # effective (post-accumulation) steps
+
+
+def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
+    """The dropout generator of epoch ``epoch``: Philox (or the CPU's
+    generator) seeded from ``(seed, epoch)`` through numpy's SeedSequence."""
+    s = np.random.SeedSequence([seed, epoch]).generate_state(2, np.uint32)
+    return torch.Generator(device=device).manual_seed(
+        int(s[0]) << 32 | int(s[1]))
+
+
+class PreemptionGuard:
+    """Graceful preemption: SIGTERM and SIGINT set a flag; the epoch loop
+    saves a salvage checkpoint at the next batch boundary and stops
+    cleanly. Handlers are installed only on the main thread (elsewhere
+    ``signal.signal`` raises and the guard stays inert)."""
+
+    def __init__(self):
+        self.requested = False
+        self._prev = {}
+
+    def __enter__(self):
+        def handler(signum, frame):
+            self.requested = True
+            print(f"[train] signal {signum}: will checkpoint and stop at the "
+                  "next batch boundary", flush=True)
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                self._prev[sig] = signal.signal(sig, handler)
+            except ValueError:   # not the main thread
+                pass
+        return self
+
+    def __exit__(self, *exc):
+        for sig, prev in self._prev.items():
+            signal.signal(sig, prev)
+        return False
 
 
 class _Losses(nn.Module):
@@ -82,15 +144,48 @@ class Trainer:
         self._bf16 = train_cfg.compute_dtype == "bfloat16"
 
     def init_state(self) -> TrainState:
+        """A fresh state over the model's current parameters: zero moments,
+        EMA equal to the parameters."""
         params = dict(self.model.named_parameters())
         zeros = lambda: {k: torch.zeros_like(v) for k, v in params.items()}
         return TrainState(params=params, mu=zeros(), nu=zeros(),
                           ema={k: v.detach().clone()
                                for k, v in params.items()},
-                          acc=zeros())
+                          acc=zeros() if self.tc.accumulation_steps > 1
+                          else None)
 
-    def _run(self, params, batch, gen):
-        if self._bf16:
+    def restore(self, state: TrainState, ck: dict) -> TrainState:
+        """Copy a loaded checkpoint (``checkpoint.load_checkpoint``) into
+        ``state`` in place: parameters, EMA, Adam moments, counts and, when
+        accumulating, the running mean. Raises for a checkpoint without
+        optimiser state, or with a part-accumulated mean this trainer does
+        not accumulate."""
+        opt = ck.get("opt_state")
+        if opt is None:
+            raise ValueError("checkpoint has no optimiser state to resume "
+                             "from (a weights-only checkpoint)")
+        if opt.get("mini_step", 0) and state.acc is None:
+            raise ValueError("checkpoint was saved mid-accumulation; resume "
+                             "with the same --accumulation_steps")
+        load_state(self.model, ck["params"])
+        with torch.no_grad():
+            for name, into in (("ema", state.ema), ("mu", state.mu),
+                               ("nu", state.nu), ("acc", state.acc)):
+                if into is None:
+                    continue
+                src = ck["ema"] if name == "ema" else opt.get(name)
+                for k, t in into.items():
+                    if src is None:         # acc of a k = 1 checkpoint
+                        t.zero_()
+                    else:
+                        t.copy_(src[k])
+        state.count = int(opt["count"])
+        state.mini_step = int(opt.get("mini_step", 0))
+        state.step = int(ck["step"])
+        return state
+
+    def _run(self, params, batch, gen, bf16: bool):
+        if bf16:
             params = cast_params(params, torch.bfloat16)
         losses = torch.func.functional_call(
             self._losses, {f"model.{k}": v for k, v in params.items()},
@@ -101,8 +196,8 @@ class Trainer:
                        gen: Optional[torch.Generator]):
         """(losses with "total", gradients of the total by parameter name)
         at the state's parameters; nothing is updated."""
-        batch = batch_to_device(batch, self.device)
-        losses = self._run(state.params, batch, gen)
+        batch = batch_to_device(_device_fields(batch), self.device)
+        losses = self._run(state.params, batch, gen, self._bf16)
         total = sum(losses.values())
         grads = torch.autograd.grad(total, list(state.params.values()),
                                     allow_unused=True, materialize_grads=True)
@@ -111,10 +206,13 @@ class Trainer:
         return losses, dict(zip(state.params, grads))
 
     @torch.no_grad()
-    def eval_losses(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
-        """The losses of one batch with dropout off (deterministic)."""
-        batch = batch_to_device(batch, self.device)
-        losses = self._run(state.params, batch, None)
+    def eval_batch(self, state: TrainState, batch, ema: bool = False
+                   ) -> Dict[str, torch.Tensor]:
+        """The losses of one batch with dropout off (deterministic), in
+        f32, at the state's parameters (or its EMA), as device tensors."""
+        batch = batch_to_device(_device_fields(batch), self.device)
+        losses = self._run(state.ema if ema else state.params, batch, None,
+                           bf16=False)
         losses["total"] = sum(losses.values())
         return losses
 
@@ -125,46 +223,243 @@ class Trainer:
         gradients' global norm before the clip ("grad_norm"), as device
         tensors (no host sync)."""
         losses, grads = self.loss_and_grads(state, batch, gen)
+        losses["grad_norm"] = self.apply_gradients(state, grads)
+        return losses
+
+    @torch.no_grad()
+    def apply_gradients(self, state: TrainState,
+                        grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The optimiser's part of a step (accumulation, clip, Adam, EMA) on
+        ``grads`` (parameter name -> gradient); updates ``state`` in place
+        and returns the global norm before the clip, a device tensor."""
         tc = self.tc
         names = list(state.params)
-        g = [grads[k] for k in names]
-        with torch.no_grad():
-            k = tc.accumulation_steps
+        g = [grads[n] for n in names]
+        k = tc.accumulation_steps
+        if k > 1:   # running mean over the k calls
             acc = [state.acc[n] for n in names]
-            if k > 1:   # running mean over the k calls
-                torch._foreach_add_(acc, torch._foreach_sub(g, acc),
-                                    alpha=1.0 / (state.mini_step + 1))
-                g = acc
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
-            losses["grad_norm"] = norm
-            state.mini_step += 1
-            if state.mini_step < k:
-                return losses
-            state.mini_step = 0
-            # clip_by_global_norm: g / norm * max_norm unless norm < max_norm
-            clip = torch.where(norm < tc.grad_clip, torch.ones_like(norm),
-                               tc.grad_clip / norm)
-            g = torch._foreach_mul(g, clip)
-            # Adam (optax.scale_by_adam), lr at the pre-increment count
-            lr = self.schedule(state.count)
-            state.count += 1
-            mu = [state.mu[n] for n in names]
-            nu = [state.nu[n] for n in names]
-            torch._foreach_lerp_(mu, g, 1.0 - _B1)
-            torch._foreach_mul_(nu, _B2)
-            torch._foreach_addcmul_(nu, g, g, value=1.0 - _B2)
-            denom = torch._foreach_div(nu, 1.0 - _B2 ** state.count)
-            torch._foreach_sqrt_(denom)
-            torch._foreach_add_(denom, _EPS)
-            upd = torch._foreach_div(mu, denom)
-            params = [state.params[n] for n in names]
-            torch._foreach_add_(params, upd,
-                                alpha=-lr / (1.0 - _B1 ** state.count))
-            # EMA of the updated parameters
-            decay = tc.ema_decay
-            ema = [state.ema[n] for n in names]
-            torch._foreach_lerp_(ema, params, 1.0 - decay)
-            if k > 1:
-                torch._foreach_zero_(acc)
-            state.step += 1
-        return losses
+            torch._foreach_add_(acc, torch._foreach_sub(g, acc),
+                                alpha=1.0 / (state.mini_step + 1))
+            g = acc
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+        state.mini_step += 1
+        if state.mini_step < k:
+            return norm
+        state.mini_step = 0
+        # clip_by_global_norm: g / norm * max_norm unless norm < max_norm
+        clip = torch.where(norm < tc.grad_clip, torch.ones_like(norm),
+                           tc.grad_clip / norm)
+        g = torch._foreach_mul(g, clip)
+        # Adam (optax.scale_by_adam), lr at the pre-increment count
+        lr = self.schedule(state.count)
+        state.count += 1
+        mu = [state.mu[n] for n in names]
+        nu = [state.nu[n] for n in names]
+        torch._foreach_lerp_(mu, g, 1.0 - _B1)
+        torch._foreach_mul_(nu, _B2)
+        torch._foreach_addcmul_(nu, g, g, value=1.0 - _B2)
+        denom = torch._foreach_div(nu, 1.0 - _B2 ** state.count)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, _EPS)
+        upd = torch._foreach_div(mu, denom)
+        params = [state.params[n] for n in names]
+        torch._foreach_add_(params, upd,
+                            alpha=-lr / (1.0 - _B1 ** state.count))
+        # EMA of the updated parameters
+        decay = tc.ema_decay
+        ema = [state.ema[n] for n in names]
+        torch._foreach_lerp_(ema, params, 1.0 - decay)
+        if k > 1:
+            torch._foreach_zero_(acc)
+        state.step += 1
+        return norm
+
+    # ---- epoch loops ----
+
+    def _save(self, output_path: str, tag, state: TrainState,
+              update_latest: bool = True) -> None:
+        with torch.profiler.record_function(f"checkpoint {tag}"):
+            save_checkpoint(output_path, tag, state, update_latest)
+
+    def train_epoch(self, state: TrainState, batcher: Batcher, epoch: int,
+                    gen: torch.Generator, metrics_logger=None,
+                    output_path: str = "", checkpoint_every: int = 0,
+                    guard=None) -> TrainState:
+        """One epoch of ``batcher``'s batches, dropout drawn from ``gen``.
+        With a guard whose ``requested`` is set, writes the salvage
+        checkpoint ``{epoch}.preempt`` at the next batch boundary and
+        raises KeyboardInterrupt; every ``checkpoint_every`` steps writes
+        ``{epoch}.mid``; neither marks the epoch complete. The host reads
+        the losses (a sync with the card) only every ``log_every`` steps
+        and at the epoch's end."""
+        from ..runtime.profiling import StepMeter
+
+        start = time.time()
+        meter = StepMeter()
+        last_losses = {}
+        for j, batch in enumerate(batcher.epoch(epoch)):
+            if guard is not None and guard.requested:
+                if output_path:
+                    self._save(output_path, f"{epoch}.preempt", state,
+                               update_latest=False)
+                    print(f"[train] preempted at epoch {epoch} batch {j}; "
+                          f"salvage checkpoint {epoch}.preempt written",
+                          flush=True)
+                raise KeyboardInterrupt("preempted")
+            meter.start()
+            losses = self.train_step(state, batch, gen)
+            last_losses = losses
+            if checkpoint_every and output_path and j > 0 and \
+                    j % checkpoint_every == 0:
+                # mid-epoch salvage checkpoint: does not mark the epoch
+                # complete (resume stays epoch-granular)
+                self._save(output_path, f"{epoch}.mid", state,
+                           update_latest=False)
+            if j > 0 and j % self.tc.log_every == 0:
+                vals = {k: float(v) for k, v in losses.items()}
+                meter.stop()
+                print(f"[train] epoch {epoch} batch {j} loss {vals} "
+                      f"time {time.time() - start:.1f}s "
+                      f"({meter.steps_per_sec():.2f} steps/s)", flush=True)
+                if metrics_logger is not None:
+                    metrics_logger.log(state.step, vals)
+        vals = {k: float(v) for k, v in last_losses.items()}
+        print(f"[train] epoch {epoch} done ({batcher.num_batches(epoch)} "
+              f"batches) loss {vals} time {time.time() - start:.1f}s",
+              flush=True)
+        sys.stdout.flush()
+        return state
+
+    def fit(self, state: TrainState, arrays: Dict[str, np.ndarray],
+            epochs: int, output_path: str, seed: int = 0,
+            start_epoch: int = 0, profile_dir: Optional[str] = None,
+            eval_arrays: Optional[Dict[str, np.ndarray]] = None,
+            early_stop: int = 0) -> TrainState:
+        """Train epochs ``start_epoch`` .. ``epochs - 1`` of ``arrays``
+        (shuffled by ``seed`` and the epoch), writing ``model/{epoch}.pt``
+        after each. With ``eval_arrays``: the dev loss after each epoch
+        (``dev_*`` in metrics.jsonl), ``model/best.json`` whenever it
+        improves, and with ``early_stop`` > 0 a stop once it has not
+        improved for that many epochs. A resumed run starts from the best
+        that ``best.json`` records (the JAX loop forgets it at a resume and
+        may name a worse epoch). SIGTERM/SIGINT salvage the epoch in
+        progress (``PreemptionGuard``) and return. ``profile_dir``: the
+        whole loop under ``runtime.profiling.trace``."""
+        from ..runtime.profiling import MetricsLogger, trace
+
+        batcher = Batcher(arrays, self.tc.batch_size, shuffle=True, seed=seed)
+        logger = MetricsLogger(os.path.join(output_path, "metrics.jsonl")
+                               if output_path else None)
+        best = best_epoch_record(output_path) if start_epoch else None
+        stale = 0
+        try:
+            with trace(profile_dir), PreemptionGuard() as guard:
+                for epoch in range(start_epoch, epochs):
+                    gen = epoch_generator(seed, epoch, self.device)
+                    with torch.profiler.record_function(f"train_epoch "
+                                                        f"{epoch}"):
+                        state = self.train_epoch(
+                            state, batcher, epoch, gen,
+                            metrics_logger=logger, output_path=output_path,
+                            checkpoint_every=self.tc.checkpoint_every_steps,
+                            guard=guard)
+                    self._save(output_path, epoch, state)
+                    if eval_arrays is None:
+                        continue
+                    with torch.profiler.record_function(f"dev_eval {epoch}"):
+                        dev = self.eval_losses(state, eval_arrays)
+                    vals = {k: round(v, 6) for k, v in dev.items()}
+                    print(f"[train] epoch {epoch} dev loss {vals}", flush=True)
+                    logger.log(state.step,
+                               {f"dev_{k}": v for k, v in dev.items()})
+                    total = float(dev.get("total", next(iter(dev.values()))))
+                    if best is None or total < best[0]:
+                        best = (total, epoch)
+                        stale = 0
+                        if output_path:
+                            save_best(output_path, epoch, total)
+                    else:
+                        stale += 1
+                        if early_stop and stale >= early_stop:
+                            print(f"[train] early stop after epoch {epoch}: "
+                                  f"no dev improvement for {early_stop} "
+                                  f"epochs (best epoch {best[1]}, dev "
+                                  f"{best[0]:.6f})", flush=True)
+                            break
+        except KeyboardInterrupt:
+            # preemption (or ctrl-c routed through the guard): the state was
+            # salvaged by train_epoch; leave the loop cleanly
+            pass
+        logger.close()
+        return state
+
+    def resume_or_init(self, output_path: str):
+        """(state, start_epoch): a fresh state over the model's parameters,
+        or, with ``resume`` on and a completed epoch in ``latest.json``,
+        that epoch's checkpoint restored and the next epoch to train. A
+        latest pointer whose checkpoint is missing walks back to the newest
+        epoch that exists on disk."""
+        state = self.init_state()
+        last = latest_epoch(output_path)
+        if self.tc.resume and last is not None:
+            while last >= 0 and not checkpoint_exists(output_path, last):
+                print(f"[train] checkpoint for epoch {last} missing; "
+                      "falling back", flush=True)
+                last -= 1
+            if last >= 0:
+                self.restore(state, load_checkpoint(output_path, last))
+                return state, last + 1
+        return state, 0
+
+    # ---- per-epoch dev evaluation ----
+
+    def eval_losses(self, state: TrainState, arrays: Dict[str, np.ndarray],
+                    batch_size: int = 0, ema_eval: bool = False
+                    ) -> Dict[str, float]:
+        """Deterministic f32 losses over an eval split: the mean of batch
+        losses weighted by each batch's real-sample count (``sample_weight``
+        masks the padded final batch, and the losses weight by it too, so
+        the mean is exact for per-sample-mean losses). Sums stay on the
+        device; the host reads them once."""
+        bs = batch_size or self.tc.batch_size
+        totals: Dict[str, torch.Tensor] = {}
+        weight = 0.0
+        for batch in Batcher(arrays, bs, shuffle=False).epoch(0):
+            w = float(batch["sample_weight"].sum())
+            losses = self.eval_batch(state, batch, ema=ema_eval)
+            losses.pop("total")
+            for k, v in losses.items():
+                totals[k] = totals.get(k, 0.0) + v.double() * w
+            weight += w
+        out = {k: float(v) / max(weight, 1.0) for k, v in totals.items()}
+        out["total"] = sum(out.values())
+        return out
+
+
+def _device_fields(batch: dict) -> dict:
+    """A batch without its host-side bookkeeping ("_indices")."""
+    return {k: v for k, v in batch.items() if not k.startswith("_")}
+
+
+def predict(arrays: Dict[str, np.ndarray],
+            predict_fn: Callable[[dict], Dict[str, torch.Tensor]],
+            batch_size: int, pipeline_depth: int = 4) -> Iterable[tuple]:
+    """Yields (host_batch, outputs as numpy) over ``arrays`` in order
+    (``Batcher`` without shuffle, the final batch padded). ``predict_fn``
+    (``runtime.inference.make_predict_fn``) holds the model, so the weights
+    (parameters or EMA, cast or not) are chosen when it is loaded; the JAX
+    method takes them from a train state. Up to ``pipeline_depth`` batches
+    are in flight: each batch's outputs start their copy into pinned host
+    memory at dispatch (``HostCopy``) and are read ``pipeline_depth``
+    batches later, as ``cli/serve`` fetches them."""
+    inflight: deque = deque()
+    for batch in Batcher(arrays, batch_size, shuffle=False).epoch(0):
+        out = predict_fn(_device_fields(batch))
+        keys = list(out)
+        inflight.append((batch, keys, HostCopy([out[k] for k in keys])))
+        if len(inflight) >= max(pipeline_depth, 1):
+            b, ks, hc = inflight.popleft()
+            yield b, dict(zip(ks, hc.get()))
+    while inflight:
+        b, ks, hc = inflight.popleft()
+        yield b, dict(zip(ks, hc.get()))

@@ -142,7 +142,38 @@ In order it
      counters set to 0 just before, read just after; the loss must fall),
      the same 10 steps with the plain versions, profiles two steps with
      torch.profiler, and runs one step under no_host_sync;
- 13. prints one JSON line {"kernels": [...]} and, last, the device line
+ 13. takes CaSE from raw files through the port's entry points ("raw
+     files"): writes raw CAsT-format TSVs from seed 5 (512 / 128 / 128
+     train / dev / test queries in topics of 8 turns, 3000 passages of
+     60-150 words from phase 11's 30522-wordpiece vocabulary, pools of 100
+     candidates), runs ``cli/prepare`` on them in a process of its own
+     (``--vocab_file``, ``--workers 3``), then ``cli/run --mode train
+     --bf16_train --checkpoint_every_steps 3`` (B=64, dropout 0.1) in a
+     subprocess that it sends SIGTERM once epoch 1's first mid-epoch
+     checkpoint is on disk (exit 0, ``1.preempt.pt`` written, ``0.mid.pt``
+     and ``1.mid.pt`` too, ``latest.json`` still at epoch 0), and in
+     process resumes it (the
+     restored parameters, EMA, Adam moments and counts equal epoch 0's
+     checkpoint bit for bit) for epochs 1-3 with every step under
+     no_host_sync, one more epoch with ``--no-kernel_rng_dropout`` and one
+     under ``--profile_dir``; each run's training-attention and
+     additive_scores launches are counted (27 + 27 and 2 + 2 a step, of
+     the variant the flags select); every loss finite, the last epoch's
+     mean loss below the first's, ``best.json`` at the lowest dev total.
+     ``--mode avg`` must write the mean of the last three epochs;
+     ``--mode test --bf16_eval`` over every epoch and ``--avg_only`` must
+     write what ``make_predict_fn`` on the prepared batches gives, the
+     average through ``--continuous --fast_argmax pallas`` what
+     ``run_continuous`` driven directly gives, and through ``--device_loop
+     8 --chunk_steps 4 --lookahead`` what the chunk loop gave;
+     ``cli/evaluate`` must report finite MAP, NDCG, recall, ROUGE, BLEU and
+     METEOR for every result. It prints the prepare seconds and shapes, ms
+     per train step inside ``fit`` beside phase 12's bare step, the idle
+     share and top kernels of the profiled epoch, dev-evaluation ms,
+     checkpoint write and load seconds and bytes, the batch's
+     host-to-device copy from pageable and from pinned memory, test
+     samples/s and the phase's seconds;
+ 14. prints one JSON line {"kernels": [...]} and, last, the device line
      {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -2925,6 +2956,541 @@ def train_attention_phase(dev, gen, instances):
     return tmha
 
 
+# ---- phase 13: CaSE from raw files (cli/prepare, cli/run, cli/evaluate) ----
+
+RAW_DIR = os.path.join(ROOT, "build", "raw_files")   # .gitignore: build/
+RAW_TOPICS = {"train": 64, "dev": 16, "test": 16}    # topics a split
+RAW_TURNS = 8                  # queries a topic: 512 / 128 / 128 queries
+RAW_PASSAGES, RAW_THEME, RAW_POOL = 3000, 12, 100
+RAW_LR, RAW_WARMUP = 5e-4, 4   # learning shows within the run's 48 steps
+RAW_MID_EVERY = 3              # the subprocess's --checkpoint_every_steps
+# epochs: 0 in a subprocess (SIGTERM in epoch 1); 1-3 resumed in process
+# (in-kernel dropout); 4 with caller-drawn masks; 5 under --profile_dir
+RAW_RESUME_TO, RAW_EPOCHS = 4, 6
+
+
+def raw_corpus(base, words, pieces):
+    """Raw CAsT-format TSVs in ``base`` (formats as tests/fixtures.py), from
+    seed 5: RAW_PASSAGES passages of 60-150 words in sentences of 10-25,
+    from the phase-11 vocabulary's words (one in eight glued to a "##"
+    piece); topics of RAW_TURNS turns, each drawing its gold passages (1-2
+    a query) from a theme of RAW_THEME passages; a query is words of its
+    gold passage and random words, its answer a 8-30 word span of the gold
+    passage; each pool lists RAW_POOL candidates (the theme, then random
+    passages; shuffled)."""
+    rng = np.random.RandomState(5)
+    words = np.array(words)
+    tails = [p[2:] for p in pieces]
+
+    def draw(n):
+        ws = list(rng.choice(words, n))
+        for i in np.flatnonzero(rng.rand(n) < 0.125):
+            ws[i] += tails[rng.randint(len(tails))]
+        return ws
+
+    passages = {}
+    for i in range(RAW_PASSAGES):
+        ws, sents = draw(rng.randint(60, 151)), []
+        while ws:
+            k = rng.randint(10, 26)
+            sents.append(" ".join(ws[:k]) + " .")
+            ws = ws[k:]
+        passages[f"P{i}"] = " ".join(sents)
+    pids = sorted(passages)
+    files = {k: [] for k in ("query", "answer", "pool", "qrel", "split")}
+    topic = 0
+    for split, n_topics in RAW_TOPICS.items():
+        for _ in range(n_topics):
+            topic += 1
+            theme = [pids[j] for j in rng.choice(len(pids), RAW_THEME,
+                                                 replace=False)]
+            for turn in range(1, RAW_TURNS + 1):
+                qid = f"{topic}_{turn}"
+                gold = list(rng.choice(theme, rng.randint(1, 3),
+                                       replace=False))
+                gw = passages[gold[0]].split()
+                a = rng.randint(0, len(gw) - 30)
+                query = gw[a:a + rng.randint(2, 5)] + draw(rng.randint(2, 6))
+                files["query"].append(f"{qid}\t{' '.join(query)} ?")
+                ctx = ";".join(f"{topic}_{i}" for i in range(1, turn))
+                answer = " ".join(gw[a:a + rng.randint(8, 31)])
+                files["answer"].append(
+                    f"{ctx}\t{qid}\t{';'.join(gold)}\t{answer}")
+                pool = list(theme)
+                while len(pool) < RAW_POOL:
+                    c = pids[rng.randint(len(pids))]
+                    if c not in pool:
+                        pool.append(c)
+                rng.shuffle(pool)
+                files["pool"] += [f"{qid} Q0 {c} {r + 1} {1 / (r + 1):.4f} "
+                                  "synth" for r, c in enumerate(pool)]
+                files["qrel"] += [f"{qid} 0 {g} 1" for g in gold]
+                files["split"].append(f"{qid}\t{split}")
+    heads = {"query": "#query_id\t#query", "passage": "#passage_id\t#passage",
+             "answer": "#context_id\t#query_id\t#passage_id\t#answer",
+             "pool": "#query_id #Q0 #passage_id #rank #score #model",
+             "qrel": "#query_id #0 #passage_id #relevance",
+             "split": "#query_id\t#split"}
+    files["passage"] = [f"{p}\t{passages[p]}" for p in pids]
+    files["reformulation.query"] = files["query"]
+    heads["reformulation.query"] = heads["query"]
+    for name, rows in files.items():
+        with open(os.path.join(base, f"cast.{name}"), "w") as f:
+            f.write(heads[name] + "\n" + "\n".join(rows) + "\n")
+    return {"queries": len(files["query"]), "passages": len(pids),
+            "words": sum(len(t.split()) for t in passages.values())}
+
+
+def same_result_files(got_dir, want_dir, what):
+    """Every .answer/.run of ``want_dir`` in ``got_dir``: answers byte for
+    byte; runs byte for byte, or the same passages in the same order but for
+    positions whose scores lie within 1e-5 of a neighbour (compared as
+    sets), scores within 1e-5."""
+    names = sorted(os.listdir(want_dir))
+    check(names and sorted(os.listdir(got_dir)) == names,
+          f"{what}: files {sorted(os.listdir(got_dir))} vs {names}")
+    ties = 0
+    for name in names:
+        with open(os.path.join(want_dir, name)) as f:
+            want = f.read()
+        with open(os.path.join(got_dir, name)) as f:
+            got = f.read()
+        if got == want:
+            continue
+        check(name.endswith(".run"), f"{what}: {name} differs")
+        g = [ln.split(" ") for ln in got.splitlines()]
+        w = [ln.split(" ") for ln in want.splitlines()]
+        check(len(g) == len(w), f"{what}: {name} has {len(g)} lines")
+        i = 0
+        while i < len(w):
+            j = i + 1
+            while j < len(w) and w[j][0] == w[i][0] and \
+                    abs(float(w[j][4]) - float(w[j - 1][4])) < 1e-5:
+                j += 1
+            ties += j - i > 1
+            check(sorted(x[2] for x in g[i:j]) == sorted(x[2] for x in
+                                                         w[i:j])
+                  and all(a[0] == b[0] and a[3] == b[3]
+                          and abs(float(a[4]) - float(b[4])) <= 1e-5
+                          for a, b in zip(g[i:j], w[i:j])),
+                  f"{what}: {name} line {i}: {g[i:j]} vs {w[i:j]}")
+            i = j
+    return ties
+
+
+def epoch_profile(trace_dir, epoch):
+    """Device busy ms and idle share of the "train_epoch {epoch}" span of
+    the Chrome trace that --profile_dir wrote, and its top kernels."""
+    (name,) = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, name)) as f:
+        events = json.load(f)["traceEvents"]
+    (span,) = [e for e in events if e.get("name") == f"train_epoch {epoch}"
+               and e.get("cat") == "user_annotation"]
+    t0, t1 = span["ts"], span["ts"] + span["dur"]
+    by_name = {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") \
+                and t0 <= e.get("ts", -1) < t1:
+            ms, n = by_name.get(e["name"], (0.0, 0))
+            by_name[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+    busy = sum(ms for ms, _ in by_name.values())
+    check(busy > 0, "raw files: the profile of the epoch has no device time")
+    top = sorted(((ms, n, k[:80]) for k, (ms, n) in by_name.items()),
+                 reverse=True)[:8]
+    return {"trace_mb": os.path.getsize(os.path.join(trace_dir, name)) / 1e6,
+            "wall_ms": span["dur"] / 1e3, "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / (span["dur"] / 1e3),
+            "top_kernels": [{"name": k, "ms": ms, "launches": n}
+                            for ms, n, k in top]}
+
+
+def raw_files(dev, bare_ms):
+    """CaSE from raw files (phase 13): cli/prepare, then cli/run --mode
+    train --bf16_train preempted by SIGTERM and resumed, --mode avg,
+    --mode test (batched, chunk loop, device loop) and cli/evaluate, each
+    gated as PERF.md section 2 says. ``bare_ms``: phase 12's ms per bare
+    train step (in-kernel dropout), printed beside fit's."""
+    import argparse
+    import re
+    import shutil
+    import signal
+    from case_rg_tpu_torch.cli import run as cli_run
+    from case_rg_tpu_torch.cli.evaluate import main as evaluate_main
+    from case_rg_tpu_torch.cli.serve import load_model
+    from case_rg_tpu_torch.data.batching import Batcher
+    from case_rg_tpu_torch.data.prepare import load_prepared
+    from case_rg_tpu_torch.data.vocab import Vocabulary
+    from case_rg_tpu_torch.device import batch_to_device, no_host_sync
+    from case_rg_tpu_torch.kernels import additive_attention as aa
+    from case_rg_tpu_torch.kernels import train_attention as ta
+    from case_rg_tpu_torch.models import multimem
+    from case_rg_tpu_torch.ops import attention
+    from case_rg_tpu_torch.runtime.continuous import (make_continuous_fns,
+                                                      run_continuous)
+    from case_rg_tpu_torch.runtime.inference import make_predict_fn
+    from case_rg_tpu_torch.runtime.io import save_results
+    from case_rg_tpu_torch.train import trainer as trainer_mod
+    from case_rg_tpu_torch.train.checkpoint import (best_epoch,
+                                                    latest_epoch,
+                                                    load_checkpoint)
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(RAW_DIR, ignore_errors=True)
+    base = os.path.join(RAW_DIR, "cast")
+    os.makedirs(base)
+    vocab_file = os.path.join(RAW_DIR, "vocab.txt")
+    words, pieces = text_vocab(vocab_file)
+    res = {"corpus": raw_corpus(base, words, pieces)}
+
+    # 1. cli/prepare as users run it: a process of its own, spawned workers
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "case_rg_tpu_torch.cli.prepare", "--data_path",
+         RAW_DIR, "--dataset", "cast", "--models", "case", "--vocab_file",
+         vocab_file, "--workers", "3"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"cli/prepare: exit {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    res["prepare_s"] = time.perf_counter() - t0
+    prep = os.path.join(base, "prepared")
+    splits = {s: load_prepared(prep, s, "case") for s in ("train", "dev",
+                                                         "test")}
+    res["prepared"] = {s: {k: list(v.shape) for k, v in a[0].items()}
+                       for s, a in splits.items()}
+    vocab = Vocabulary.load(os.path.join(prep, "vocab.txt"))
+    check(len(vocab) == V, f"prepared vocabulary of {len(vocab)} words")
+    n_train = len(splits["train"][0]["id"])
+    n_batches = -(-n_train // B)
+    print(f"raw files prepared: {res['prepare_s']:.1f} s, "
+          + json.dumps(res["prepared"]), flush=True)
+
+    out = os.path.join(RAW_DIR, "out")
+    common = ["--model", "case", "--data_path", RAW_DIR, "--dataset", "cast",
+              "--output_path", out, "--batch_size", str(B)]
+    train_args = common + ["--mode", "train", "--bf16_train",
+                           "--learning_rate", str(RAW_LR), "--warmup_steps",
+                           str(RAW_WARMUP)]
+
+    # 2a. train in a subprocess with mid-epoch checkpoints every
+    # RAW_MID_EVERY steps; SIGTERM once epoch 1's first one is on disk (the
+    # host runs ahead of the card, so a timer cannot place the signal)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "case_rg_tpu_torch.cli.run"]
+        + train_args + ["--epoch", str(RAW_RESUME_TO),
+                        "--checkpoint_every_steps", str(RAW_MID_EVERY)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    log = []
+    mid = os.path.join(out, "model", "1.mid.pt")
+    try:
+        for line in proc.stdout:
+            log.append(line)
+            if line.startswith("[train] epoch 0 dev loss"):
+                while proc.poll() is None and not os.path.exists(mid):
+                    time.sleep(0.01)
+                proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = "".join(log)
+    m = re.search(r"preempted at epoch (\d+) batch (\d+)", text)
+    check(rc == 0 and m is not None and m.group(1) == "1"
+          and os.path.exists(os.path.join(out, "model", "1.preempt.pt"))
+          and os.path.exists(os.path.join(out, "model", "0.mid.pt"))
+          and os.path.exists(mid)
+          and not os.path.exists(os.path.join(out, "model", "1.pt"))
+          and latest_epoch(out) == 0,
+          f"train: SIGTERM in epoch 1: exit {rc}, log tail {text[-1500:]}")
+    res["preempt"] = {"exit": rc, "epoch": 1, "batch": int(m.group(2)),
+                      "of_batches": n_batches,
+                      "subprocess_s": time.perf_counter() - t0,
+                      "epoch0_last_loss": re.search(
+                          r"epoch 0 done .* loss (\{[^}]*\})", text).group(1)}
+    for tag in ("1.preempt", "0.mid", "1.mid"):
+        os.remove(os.path.join(out, "model", f"{tag}.pt"))
+
+    # 2b. resumed in process, instrumented: the restored state against
+    # epoch 0's checkpoint bit for bit; each step under no_host_sync; epoch
+    # wall times, losses, checkpoint writes and dev evaluations timed
+    T = trainer_mod.Trainer
+    orig = {n: getattr(T, n) for n in ("resume_or_init", "train_step",
+                                       "train_epoch", "eval_losses")}
+    orig_save = trainer_mod.save_checkpoint
+    rec = {"epochs": {}, "losses": {}, "eval_ms": [], "save": [],
+           "restores": [], "epoch": None}
+
+    def resume_or_init(self, output_path):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, start = orig["resume_or_init"](self, output_path)
+        torch.cuda.synchronize()
+        rec["load_s"] = time.perf_counter() - t0
+        ck = load_checkpoint(output_path, start - 1)
+        opt = ck["opt_state"]
+        same = all(torch.equal(getattr(state, f)[k].detach().cpu(), src[k])
+                   for f, src in (("params", ck["params"]),
+                                  ("ema", ck["ema"]), ("mu", opt["mu"]),
+                                  ("nu", opt["nu"])) for k in src)
+        rec["restores"].append({
+            "start_epoch": start, "bit_equal": same, "count": state.count,
+            "step": state.step, "load_s": rec["load_s"],
+            "bytes": os.path.getsize(os.path.join(output_path, "model",
+                                                  f"{start - 1}.pt"))})
+        check(same and (state.count, state.step, state.mini_step) ==
+              (opt["count"], ck["step"], opt["mini_step"]),
+              f"train: resumed state vs checkpoint {start - 1}: "
+              f"{rec['restores'][-1]}")
+        return state, start
+
+    def train_step(self, state, batch, gen):
+        with no_host_sync():
+            o = orig["train_step"](self, state, batch, gen)
+        rec["losses"].setdefault(rec["epoch"], []).append(o["total"])
+        return o
+
+    def train_epoch(self, state, batcher, epoch, gen, **kw):
+        rec["epoch"] = epoch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = orig["train_epoch"](self, state, batcher, epoch, gen, **kw)
+        torch.cuda.synchronize()
+        rec["epochs"][epoch] = (time.perf_counter() - t0,
+                                batcher.num_batches(epoch))
+        return state
+
+    def eval_losses(self, *a, **kw):
+        t0 = time.perf_counter()
+        o = orig["eval_losses"](self, *a, **kw)
+        rec["eval_ms"].append((time.perf_counter() - t0) * 1e3)
+        return o
+
+    def save_checkpoint(output_path, epoch, state, update_latest=True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = orig_save(output_path, epoch, state, update_latest)
+        rec["save"].append({"tag": str(epoch),
+                            "s": time.perf_counter() - t0,
+                            "bytes": os.path.getsize(path)})
+        return path
+
+    def counted(extra):
+        """cli/run train with ``extra``, the training kernels' counters set
+        to 0 just before and read just after."""
+        torch.cuda.synchronize()
+        for v in ("mask", "rng"):
+            ta.LAUNCHES_FWD[v] = ta.LAUNCHES_BWD[v] = 0
+        aa.LAUNCHES = aa.LAUNCHES_BWD = 0
+        steps0 = sum(n for _, n in rec["epochs"].values())
+        cli_run.main(train_args + extra)
+        steps = sum(n for _, n in rec["epochs"].values()) - steps0
+        return steps, {v: (ta.LAUNCHES_FWD[v], ta.LAUNCHES_BWD[v])
+                       for v in ("mask", "rng")}, (aa.LAUNCHES,
+                                                   aa.LAUNCHES_BWD)
+
+    trace_dir = os.path.join(RAW_DIR, "trace")
+    runs = {}
+    try:
+        for n, fn in (("resume_or_init", resume_or_init),
+                      ("train_step", train_step),
+                      ("train_epoch", train_epoch),
+                      ("eval_losses", eval_losses)):
+            setattr(T, n, fn)
+        trainer_mod.save_checkpoint = save_checkpoint
+        for name, variant, extra in (
+                ("resumed", "rng", ["--epoch", str(RAW_RESUME_TO)]),
+                ("caller_masks", "mask", ["--epoch", str(RAW_EPOCHS - 1),
+                                          "--no-kernel_rng_dropout"]),
+                ("profiled", "rng", ["--epoch", str(RAW_EPOCHS),
+                                     "--profile_dir", trace_dir])):
+            steps, launches, add = counted(extra)
+            other = "mask" if variant == "rng" else "rng"
+            want = TRAIN_SITES_PER_STEP * steps
+            check(steps > 0 and launches[variant] == (want, want)
+                  and launches[other] == (0, 0) and add == (2 * steps,) * 2,
+                  f"train {name}: {steps} steps, launches {launches}, "
+                  f"additive_scores {add}")
+            runs[name] = {"steps": steps, "launches": launches,
+                          "additive_launches": add}
+    finally:
+        for n, fn in orig.items():
+            setattr(T, n, fn)
+        trainer_mod.save_checkpoint = orig_save
+        attention.set_fused_train_attention(None)
+        attention.set_fused_train_attn_rng(True)
+        attention.set_fused_attention(None)
+        multimem.set_fused_stack(None)
+    check([r["start_epoch"] for r in rec["restores"]] == [
+        1, RAW_RESUME_TO, RAW_EPOCHS - 1],
+          f"train: resumed at epochs {rec['restores']}")
+    means = {e: float(torch.stack(v).mean()) for e, v in rec["losses"].items()}
+    every = torch.cat([torch.stack(v) for v in rec["losses"].values()])
+    check(bool(torch.isfinite(every).all()), "train: a loss is not finite")
+    first, last = min(means), max(means)
+    check(means[last] < means[first],
+          f"train: mean loss of epoch {last} {means[last]} not below epoch "
+          f"{first}'s {means[first]}")
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        dev_rows = [json.loads(x) for x in f if "dev_total" in x]
+    dev_totals = [r["dev_total"] for r in dev_rows]
+    check(len(dev_rows) == RAW_EPOCHS and all(np.isfinite(dev_totals))
+          and best_epoch(out) == int(np.argmin(dev_totals)),
+          f"train: dev totals {dev_totals}, best.json {best_epoch(out)}")
+    steady = [e for e in (2, 3) if e in rec["epochs"]]
+    fit_ms = [rec["epochs"][e][0] * 1e3 / rec["epochs"][e][1]
+              for e in steady]
+
+    # the batch's host-to-device copy from pageable memory, as fit makes it,
+    # and from pinned memory (is a pinned prefetch of the next batch needed?)
+    batch = next(Batcher(splits["train"][0], B, shuffle=True,
+                         seed=1).epoch(0))
+    batch = {k: v for k, v in batch.items() if not k.startswith("_")}
+    h2d = {}
+    for how in ("pageable", "pinned"):
+        ts = []
+        for _ in range(7):
+            src = batch if how == "pageable" else {
+                k: torch.from_numpy(v).long().pin_memory()
+                if v.dtype != np.float32 else torch.from_numpy(v).pin_memory()
+                for k, v in batch.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch_to_device(src, dev)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            ts.append(((t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3))
+        ts.sort()
+        h2d[how] = {"host_ms": ts[3][0], "until_done_ms": ts[3][1]}
+    h2d["bytes"] = sum(v.nbytes * (2 if v.dtype == np.int32 else 1)
+                       for v in batch.values())
+    res["train"] = {
+        "steps_per_epoch": n_batches, "epochs": {
+            e: {"s": s, "ms_per_step": s * 1e3 / n, "mean_loss": means.get(e)}
+            for e, (s, n) in sorted(rec["epochs"].items())},
+        "fit_ms_per_step_steady": fit_ms, "bare_train_step_ms": bare_ms,
+        "dev_totals": dev_totals, "best_epoch": best_epoch(out),
+        "dev_eval_ms": rec["eval_ms"], "checkpoint_writes": rec["save"],
+        "restores": rec["restores"],
+        "h2d_batch": h2d, "runs": runs,
+        "sync_check": "every fit step under no_host_sync",
+        "profile_epoch_5": epoch_profile(trace_dir, RAW_EPOCHS - 1)}
+    print("raw files training: " + json.dumps(res["train"]), flush=True)
+
+    # 3. --mode avg over the last three epochs: the mean of their params/EMA
+    t0 = time.perf_counter()
+    cli_run.main(common + ["--mode", "avg", "--epoch", str(RAW_EPOCHS)])
+    res["avg_s"] = time.perf_counter() - t0
+    avg = load_checkpoint(out, "avg")
+    cks = [load_checkpoint(out, e) for e in range(RAW_EPOCHS - 3, RAW_EPOCHS)]
+    for name in ("params", "ema"):
+        for k, v in avg[name].items():
+            want = np.mean(np.stack([c[name][k].numpy() for c in cks]), 0)
+            check(np.array_equal(v.numpy(), want),
+                  f"avg: {name} {k} is not the mean of epochs 3-5")
+    del cks
+
+    # 4. --mode test --bf16_eval: every epoch and the average, batched; the
+    # average through the chunk loop and the device loop
+    test_args = common + ["--mode", "test", "--bf16_eval"]
+    result = os.path.join(out, "result")
+    timed_runs = {}
+
+    def test_run(name, extra, output=out):
+        args = [x if x != out else output for x in test_args] + extra
+        t0 = time.perf_counter()
+        cli_run.main(args)
+        timed_runs[name] = time.perf_counter() - t0
+        return os.path.join(output, "result")
+
+    test_run("batched_every_epoch", ["--epoch", str(RAW_EPOCHS)])
+    test_run("batched_avg", ["--avg_only"])
+    cont_out, loop_out = (os.path.join(RAW_DIR, n) for n in ("cont", "loop"))
+    for d in (cont_out, loop_out):
+        os.makedirs(d)
+        os.symlink(os.path.join(out, "model"), os.path.join(d, "model"))
+    cont_result = test_run("chunk_loop_avg", [
+        "--avg_only", "--continuous", "--fast_argmax", "pallas"], cont_out)
+    loop_result = test_run("device_loop_avg", [
+        "--avg_only", "--continuous", "--fast_argmax", "pallas",
+        "--device_loop", "8", "--chunk_steps", "4", "--lookahead"], loop_out)
+
+    # the same, driven directly: make_predict_fn on the prepared batches,
+    # run_continuous on the same rows
+    t0 = time.perf_counter()
+    ref = os.path.join(RAW_DIR, "ref")
+    serve_args = argparse.Namespace(
+        model="case", output_path=out, device="cuda", bf16=True, ema=False,
+        embedding_size=E, hidden_size=E, num_heads=H, max_target_length=T_ANS,
+        beam_width=1, min_window_size=4, num_windows=1)
+    for epoch in list(range(RAW_EPOCHS)) + ["avg"]:
+        cfg, model = load_model(serve_args, vocab, epoch)
+        fn = make_predict_fn(model, cfg, T_ANS, device=dev)
+        for s in ("dev", "test"):
+            arrays, meta = splits[s][0], splits[s][1]
+            save_results(trainer_mod.predict(arrays, fn, B), meta, vocab,
+                         ref, 0, epoch, f"cast_{s}")
+    ties = {"batched": same_result_files(result, os.path.join(ref, "result"),
+                                         "test batched vs make_predict_fn")}
+    ref_cont = os.path.join(RAW_DIR, "ref_cont")
+    init_fn, chunk_fn, refill_fn = make_continuous_fns(
+        model, T_ANS, 8, fast_argmax="pallas", device=dev)
+    for s in ("dev", "test"):
+        arrays, meta = splits[s][0], splits[s][1]
+        rows = []
+        run_continuous(
+            ({"i": i} for i in range(len(arrays["id"]))),
+            lambda reqs, k: {f: arrays[f][[r["i"] for r in reqs]
+                                          + [reqs[-1]["i"]] * (k - len(reqs))]
+                             for f in ("query", "passage")},
+            init_fn, chunk_fn, refill_fn, B, B // 4,
+            emit=lambda r, ids, rk: rows.append((r["i"], ids, rk)))
+        save_results((({"id": [i], "_indices": [i]},
+                       {"answer": ids[None], "rank": rk[None]})
+                      for i, ids, rk in rows), meta, vocab, ref_cont, 0,
+                     "avg", f"cast_{s}")
+    del model
+    ties["chunk_loop"] = same_result_files(
+        cont_result, os.path.join(ref_cont, "result"),
+        "test --continuous vs run_continuous")
+    ties["device_loop"] = same_result_files(
+        loop_result, cont_result, "test --device_loop vs --continuous")
+    n_eval = sum(len(splits[s][0]["id"]) for s in ("dev", "test"))
+    res["test"] = {
+        "samples_per_checkpoint": n_eval, "cli_s": timed_runs,
+        "samples_per_s": {k: n_eval * (RAW_EPOCHS if "every" in k else 1)
+                          / v for k, v in timed_runs.items()},
+        "near_ties": ties, "references_s": time.perf_counter() - t0}
+
+    # 5. cli/evaluate: every metric of every result finite
+    t0 = time.perf_counter()
+    report = evaluate_main(["--model", "case", "--data_path", RAW_DIR,
+                            "--datasets", "cast", "--output_path", out])
+    res["evaluate_s"] = time.perf_counter() - t0
+    want = {"map", "ndcg", "recall_10", "ROUGE_1_F1", "ROUGE_2_F1",
+            "ROUGE_L_F1", "BLEU", "METEOR"}
+    prefixes = report["cast"]
+    check(sorted(prefixes) == sorted(
+        f"cast_{s}_{e}" for s in ("dev", "test")
+        for e in list(range(RAW_EPOCHS)) + ["avg"]),
+        f"evaluate: prefixes {sorted(prefixes)}")
+    for prefix, metrics in prefixes.items():
+        check(want <= set(metrics) and all(
+            np.isfinite(v) for k, v in metrics.items()
+            if k != "METEOR_variant"), f"evaluate {prefix}: {metrics}")
+    res["evaluate"] = {p: {k: m[k] for k in sorted(want)}
+                       for p, m in prefixes.items()
+                       if p.endswith(("_0", "_avg"))}
+    print("raw files test and evaluate: " + json.dumps(
+        {k: res[k] for k in ("test", "avg_s", "evaluate_s", "evaluate")}),
+        flush=True)
+    shutil.rmtree(RAW_DIR, ignore_errors=True)
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -3016,6 +3582,11 @@ def main() -> int:
     tmha = train_attention_phase(dev, gen, instances)
     train = train_case(dev)
     print("case training: " + json.dumps(train), flush=True)
+    raw = raw_files(dev, float(np.median(train["rng"]["kernels"][
+        "ms_per_step"])))
+    print("raw files: " + json.dumps({k: raw[k] for k in (
+        "corpus", "prepare_s", "preempt", "avg_s", "evaluate_s",
+        "phase_s")}), flush=True)
 
     kernels = [
         {"name": "fused_mha", "route": "cuda",

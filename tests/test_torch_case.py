@@ -149,7 +149,12 @@ def test_port_imports_nothing_of_jax():
     scanned = {str(f.relative_to(ROOT)) for f in files}
     for mod in ("kernels/decode_attention.py", "kernels/additive_attention.py",
                 "decode/loops.py", "cli/serve.py", "serving/http.py",
-                "train/checkpoint.py", "data/text.py", "native/__init__.py"):
+                "train/checkpoint.py", "data/text.py", "native/__init__.py",
+                "train/trainer.py", "data/batching.py", "data/loaders.py",
+                "data/prepare.py", "cli/prepare.py", "cli/run.py",
+                "cli/evaluate.py", "runtime/profiling.py", "pipeline.py",
+                "evaluation/harness.py", "evaluation/meteor.py",
+                "evaluation/synonyms.py"):
         assert f"case_rg_tpu_torch/{mod}" in scanned, mod
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imports(f) if name in _FORBIDDEN]

@@ -292,7 +292,7 @@ def test_bf16_step_keeps_f32_masters():
                    for v in out.values())
     assert all(p.dtype == torch.float32 for p in st.params.values())
     assert any(not torch.equal(p, before[k]) for k, p in st.params.items())
-    ev = trainer.eval_losses(st, _batch(32))
+    ev = trainer.eval_batch(st, _batch(32))
     assert torch.isfinite(ev["total"])
 
 
