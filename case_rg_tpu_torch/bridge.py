@@ -10,7 +10,10 @@ sees JAX. Names map one for one ("a/b/c/kernel" -> "a.b.c.weight"):
 * a LayerNorm ``scale`` -> ``weight``; an Embedding ``embedding`` ->
   ``weight``;
 * the interaction's ``dual_att_kernel`` [3D, 1] -> ``dual_att.weight``
-  [1, 3D] (the bilinear ``v/kernel`` [H, 1] is an ordinary Dense kernel).
+  [1, 3D] (the bilinear ``v/kernel`` [H, 1] is an ordinary Dense kernel);
+* a GRU's ``w_ih_l{layer}_d{dir}`` / ``w_hh_...`` / ``b_ih_...`` /
+  ``b_hh_...`` keep their names and layout (``ops/gru.GRU`` holds them
+  as the JAX package does).
 
 The load is strict: an unused leaf, a parameter left unset or a shape
 mismatch raises.
@@ -20,6 +23,8 @@ from __future__ import annotations
 
 from collections.abc import Mapping
 from typing import Dict, Tuple
+
+import re
 
 import numpy as np
 import torch
@@ -34,6 +39,9 @@ _LEAVES = {
     "qkv_bias": (("in_proj_bias",), False),
     "dual_att_kernel": (("dual_att", "weight"), True),
 }
+
+
+_GRU_LEAF = re.compile(r"[wb]_(ih|hh)_l\d+_d\d+$")
 
 
 def _flatten(tree, prefix=()) -> Dict[Tuple[str, ...], np.ndarray]:
@@ -51,9 +59,12 @@ def state_dict_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
     """Port parameter name -> f32 array in the port's layout."""
     out = {}
     for path, arr in _flatten(tree).items():
-        if path[-1] not in _LEAVES:
+        if _GRU_LEAF.match(path[-1]):
+            attr, transpose = (path[-1],), False
+        elif path[-1] in _LEAVES:
+            attr, transpose = _LEAVES[path[-1]]
+        else:
             raise KeyError(f"bridge: no mapping for leaf {'/'.join(path)}")
-        attr, transpose = _LEAVES[path[-1]]
         arr = np.asarray(arr, dtype=np.float32)
         out[".".join(path[:-1] + attr)] = arr.T if transpose else arr
     return out

@@ -1,9 +1,14 @@
-"""CLI: train, test and average CaSE (port of ``case_rg_tpu/cli/run.py``).
+"""CLI: train, test and average the six models (port of
+``case_rg_tpu/cli/run.py``).
 
     python -m case_rg_tpu_torch.cli.run --model case --mode train \
         --data_path ./dataset/ --dataset cast --bf16_train
     python -m case_rg_tpu_torch.cli.run --model case --mode avg ...
     python -m case_rg_tpu_torch.cli.run --model case --mode test ...
+
+``--model`` is case, masque, s2sa, gttp, glks or tmemnet; GLKS trains
+with its ``ds_mle_mce_train`` losses, and ``--mode ps_train`` trains the
+ranker of masque or tmemnet alone.
 
 The JAX CLI's flags, defaults and output files. ``--device`` defaults to
 cuda: without a card every mode but ``avg`` raises, and ``--device cpu``
@@ -28,8 +33,7 @@ EMA.
 Flags with no effect in the port: ``--fast_rng``/``--no-fast_rng`` (the
 port has one dropout generator, Philox on the card) and the JAX package's
 XLA compile cache. ``--bf16_scores``' default resolves to f32 attention
-scores. Refused, each with the ROADMAP item that holds it: models other
-than case (Queue 1 items 5-6), ``--mode ps_train`` (item 5),
+scores. Refused, each with the ROADMAP item that holds it:
 ``--multihost``, ``--mesh_shape`` and ``--pool_shard`` (item 7),
 ``--ckpt_backend orbax``, ``--remat``, ``--seeded_dropout`` and an
 explicit ``--bf16_scores`` (item 2's training options).
@@ -50,18 +54,19 @@ from ..runtime.io import save_results
 from ..train.checkpoint import (best_epoch, checkpoint_exists,
                                 load_checkpoint, save_checkpoint)
 
-# where each model the JAX package trains waits in ROADMAP's Queue 1
-_NOT_PORTED = {"masque": "item 5 (Masque)", "glks": "item 6 (the GRU family)",
-               "tmemnet": "item 6 (the GRU family)",
-               "gttp": "item 6 (the GRU family)",
-               "s2sa": "item 6 (the GRU family)"}
+# the fields each model's decode reads (--continuous feeds these alone)
+_DECODE_INPUTS = {"case": ("query", "passage"), "masque": ("query", "passage"),
+                  "tmemnet": ("context", "passage"),
+                  "s2sa": ("context", "background"),
+                  "gttp": ("context", "background"),
+                  "glks": ("context", "background")}
 
 
 def build_parser():
     p = argparse.ArgumentParser()
     p.add_argument("--model", type=str, required=True,
                    choices=["case", "masque", "glks", "tmemnet", "gttp", "s2sa"],
-                   help="the model (the port trains and tests case)")
+                   help="the model to train, test or average")
     p.add_argument("--mode", type=str, required=True,
                    choices=["train", "test", "ps_train", "avg"])
     p.add_argument("--device", type=str, default="cuda",
@@ -221,14 +226,9 @@ def build_parser():
 
 
 def _refuse_unported(args) -> None:
-    if args.model in _NOT_PORTED:
-        raise SystemExit(f"--model {args.model}: not ported yet (ROADMAP "
-                         f"Queue 1 {_NOT_PORTED[args.model]}); the port "
-                         "trains and tests case")
-    if args.mode == "ps_train":
-        raise SystemExit("--mode ps_train: the rank-only pre-training of "
-                         "Masque/TMemNet is not ported yet (ROADMAP Queue 1 "
-                         "item 5, Masque)")
+    if args.mode == "ps_train" and args.model not in ("masque", "tmemnet"):
+        raise SystemExit("--mode ps_train is only defined for masque and "
+                         "tmemnet (their rank-only training)")
     for flag, on in (("--multihost", args.multihost),
                      ("--mesh_shape", bool(args.mesh_shape)),
                      ("--pool_shard", args.pool_shard)):
@@ -287,7 +287,13 @@ def train(args):
                      compute_dtype="bfloat16" if args.bf16_train
                      else "float32")
     model = create_model(args.model, mcfg, device=args.device, seed=args.seed)
-    trainer = Trainer(model, tc, total_steps, device=args.device)
+    loss_kwargs = {}
+    if args.mode == "ps_train":
+        loss_kwargs = {"mode": "ps_train"}
+    elif args.model == "glks":
+        loss_kwargs = {"mode": "ds_mle_mce_train"}
+    trainer = Trainer(model, tc, total_steps, device=args.device,
+                      loss_method_kwargs=loss_kwargs)
     state, start_epoch = trainer.resume_or_init(output)
     print(f"[run] {args.model} train: {n} samples, {total_steps} steps, "
           f"start epoch {start_epoch}", flush=True)
@@ -427,7 +433,7 @@ def _predict_continuous(args, fns, arrays):
     from ..runtime.continuous import run_continuous, run_continuous_device
 
     refill = args.refill or max(args.batch_size // 4, 1)
-    feed = {k: arrays[k] for k in ("query", "passage")}
+    feed = {k: arrays[k] for k in _DECODE_INPUTS[args.model]}
 
     def make_batch(reqs, k):
         sel = [r["i"] for r in reqs]
@@ -498,7 +504,7 @@ def main(argv=None):
     np.random.seed(args.seed)
     # routing switches are set both ways: main() is re-entered in-process
     from ..ops import attention
-    training = args.mode == "train" and args.bf16_train
+    training = args.mode in ("train", "ps_train") and args.bf16_train
     attention.set_fused_train_attention(
         training if args.fused_train_attn is None else args.fused_train_attn)
     attention.set_fused_train_attn_rng(
@@ -507,7 +513,7 @@ def main(argv=None):
     attention.set_fused_attention(None if args.fused_attn else False)
     from ..models.multimem import set_fused_stack
     set_fused_stack(args.fused_stack)
-    if args.mode == "train":
+    if args.mode in ("train", "ps_train"):
         train(args)
     elif args.mode == "avg":
         average(args)

@@ -66,10 +66,13 @@ each bucket becomes its own continuous-decode lane.
 ``/``, receive JSONL responses; GET ``/healthz`` for liveness and
 ``/varz`` for serving stats.
 
+``--model`` is any of the six; "ranking" comes back for the models with a
+rank head (case, masque, tmemnet), and ``--rank_only`` refuses the others.
+
 Not served by the port yet, each refused with a message: ``--from_export``
 (export, ROADMAP Queue 1 item 4), ``--pool_shard`` > 1 (parallelism, item
-7), ``--bf16_scores`` (the port keeps attention scores in f32 and has no
-switch for bf16 ones), and models other than CaSE (items 5 and 6).
+7) and ``--bf16_scores`` (the port keeps attention scores in f32 and has no
+switch for bf16 ones).
 """
 
 from __future__ import annotations
@@ -98,19 +101,12 @@ from ..serving.offline import run_offline_batched, run_offline_continuous
 from ..train.checkpoint import (best_epoch, checkpoint_exists, latest_epoch,
                                 load_checkpoint)
 
-# where each model the JAX package serves waits in ROADMAP's Queue 1
-_NOT_PORTED = {"masque": "item 5 (Masque)", "glks": "item 6 (the GRU family)",
-               "tmemnet": "item 6 (the GRU family)",
-               "gttp": "item 6 (the GRU family)",
-               "s2sa": "item 6 (the GRU family)"}
-
-
 def build_parser():
     p = argparse.ArgumentParser()
     p.add_argument("--model", type=str, default=None,
                    choices=["case", "masque", "glks", "tmemnet", "gttp",
                             "s2sa"],
-                   help="the model to serve (the port serves case)")
+                   help="the model to serve")
     p.add_argument("--prepared_dir", type=str, required=True,
                    help="prepared dir holding vocab.txt (+ freq.json)")
     p.add_argument("--output_path", type=str, default=None,
@@ -282,10 +278,6 @@ def _refuse_unported(args) -> None:
     if args.bf16_scores:
         raise SystemExit("--bf16_scores: the port has no bf16-scores switch "
                          "(attention scores stay f32); serve without it")
-    if args.model in _NOT_PORTED:
-        raise SystemExit(f"--model {args.model}: not ported yet (ROADMAP "
-                         f"Queue 1 {_NOT_PORTED[args.model]}); the port "
-                         "serves case")
 
 
 def _resolve_epoch(args):
@@ -311,7 +303,7 @@ def _resolve_epoch(args):
 
 
 def load_model(args, vocab: Vocabulary, epoch):
-    """(model config, CaSE with the checkpoint's weights on the device):
+    """(model config, the model with the checkpoint's weights on the device):
     built, loaded and, with ``--bf16``, cast once."""
     from ..bridge import load_state
     base = ModelConfig(embedding_size=args.embedding_size,

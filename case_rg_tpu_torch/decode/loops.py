@@ -12,13 +12,18 @@
   cumulative probability first exceeds it (``pick_by_uniform``). So a
   request samples the same answer whatever its batch, chunk or refill
   order. ``keys_from_seed`` derives per-row keys from a seed.
+* ``run_greedy``, ``run_greedy_copy`` and ``run_sample``: the step
+  protocol's loops (``models/predict.py``) over a step function
+  ``step_fn(state, prev [B]) -> (scores [B, V], state)``, with the
+  reference's EOS bookkeeping: an EOS at step 0 becomes UNK, positions
+  after a row's EOS are PAD, the emitted token is fed back.
+  ``run_greedy_copy`` takes its argmax over a copy mixture without the
+  [B, V] scatter (``kernels/copy_argmax.candidate_argmax_from_logits``,
+  the ``combine_copy_mass`` kernel on the card).
 * ``run_beam``: the vectorized batch x width beam with the reference's
   retirement, ``-log(p + 1e-10)`` costs, length-normalised final choice and
   stable-sort tie-breaks; ``tile_state`` and ``_reindex_state`` lay a decode
   state out over the beams.
-
-``run_greedy`` and ``run_sample`` (the GRU family's generic loops) wait for
-those models.
 """
 
 from __future__ import annotations
@@ -132,6 +137,122 @@ def pick_by_uniform(logits: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     at = (u.to(cdf.dtype) * cdf[:, -1])[:, None].contiguous()
     idx = torch.searchsorted(cdf, at, right=True)[:, 0]
     return idx.clamp_max(logits.shape[-1] - 1).to(torch.int32)
+
+
+def _greedy_loop(pick_fn, init_state, batch_size: int, max_len: int,
+                 bos: int, eos: int, unk: int, pad: int,
+                 early_exit: bool) -> torch.Tensor:
+    """The greedy loop: ``pick_fn(state, prev) -> (idx [B], state)``
+    chooses each next token; this applies the EOS bookkeeping. With
+    ``early_exit`` it stops once every row has ended (later positions stay
+    0), reading one flag from the device a step: a host read, so this loop
+    is never captured whole. Returns [B, max_len] int32."""
+    dev = _device_of(init_state)
+    state = init_state
+    prev = torch.full((batch_size,), bos, dtype=torch.int32, device=dev)
+    ended = torch.zeros(batch_size, dtype=torch.bool, device=dev)
+    out = torch.zeros(batch_size, max_len, dtype=torch.int32, device=dev)
+    for t in range(max_len):
+        if early_exit and t > 0 and bool(ended.all()):
+            break
+        idx, state = pick_fn(state, prev)
+        this_end = idx == eos
+        if t == 0:
+            idx = torch.where(this_end, unk, idx)
+        else:
+            idx = torch.where(ended, pad, idx)
+        ended = ended | this_end
+        out[:, t] = idx
+        prev = idx
+    return out
+
+
+def run_greedy(step_fn: StepFn, init_state, batch_size: int, max_len: int,
+               bos: int, eos: int, unk: int, pad: int = 0,
+               early_exit: bool = False) -> torch.Tensor:
+    """Greedy decoding with the reference's EOS bookkeeping. The answers
+    are the same with ``early_exit`` (positions past a row's EOS are PAD
+    either way)."""
+    def pick(state, prev):
+        scores, state = step_fn(state, prev)
+        return scores.argmax(dim=-1).to(torch.int32), state
+
+    return _greedy_loop(pick, init_state, batch_size, max_len, bos, eos,
+                        unk, pad, early_exit)
+
+
+def run_greedy_copy(fast_fn, src_ids: torch.Tensor, init_state,
+                    batch_size: int, max_len: int, bos: int, eos: int,
+                    unk: int, pad: int = 0,
+                    early_exit: bool = False) -> torch.Tensor:
+    """Greedy decoding over a copy-mixture step without the [B, V] scatter.
+    ``fast_fn(state, prev) -> (logits [B, V], l_at [B, L], gate, cw [B, L],
+    state)``: the vocabulary logits, those logits at the (step-invariant)
+    source ids, the gate of the softmax branch and the gate-scaled copy
+    mass, the step's distribution being ``gate * softmax(logits) +
+    scatter_add(cw, src_ids)``. Same bookkeeping as ``run_greedy``."""
+    from ..kernels.copy_argmax import candidate_argmax_from_logits
+
+    ids32 = src_ids.to(torch.int32)
+
+    def pick(state, prev):
+        logits, l_at, gate, cw, state = fast_fn(state, prev)
+        return candidate_argmax_from_logits(logits, l_at, gate, cw,
+                                            ids32), state
+
+    return _greedy_loop(pick, init_state, batch_size, max_len, bos, eos,
+                        unk, pad, early_exit)
+
+
+def run_sample(step_fn: StepFn, init_state, batch_size: int, max_len: int,
+               bos: int, eos: int, unk: int, pad: int,
+               row_keys: torch.Tensor, temperature: float = 1.0,
+               top_k: int = 0, top_p: float = 1.0) -> torch.Tensor:
+    """Categorical sampling with the reference's bookkeeping: the last step
+    is EOS (PAD on a row already ended). Row r draws at step t from its key
+    ``row_keys[r]`` [B, 2] alone (``sample_uniforms``). Without controls it
+    samples from softmax(softmax(scores)), the reference's double softmax;
+    any control switches to ``sampling_controls(log_softmax(scores))``."""
+    validate_controls(temperature, top_k, top_p)
+    controlled = temperature != 1.0 or top_k > 0 or top_p < 1.0
+    dev = _device_of(init_state)
+    u = sample_uniforms(row_keys.to(device=dev, dtype=torch.int64), max_len)
+    state = init_state
+    prev = torch.full((batch_size,), bos, dtype=torch.int32, device=dev)
+    ended = torch.zeros(batch_size, dtype=torch.bool, device=dev)
+    out = torch.zeros(batch_size, max_len, dtype=torch.int32, device=dev)
+    for t in range(max_len):
+        scores, state = step_fn(state, prev)
+        idx = pick_by_uniform(sample_logits(scores, controlled, temperature,
+                                            top_k, top_p), u[:, t])
+        this_end = idx == eos
+        if t == 0:
+            idx = torch.where(this_end, unk, idx)
+        if t == max_len - 1:
+            idx = torch.full_like(idx, eos)
+        if t > 0:
+            idx = torch.where(ended, pad, idx)
+        ended = ended | this_end
+        out[:, t] = idx
+        prev = idx
+    return out
+
+
+def sample_logits(scores: torch.Tensor, controlled: bool,
+                  temperature: float = 1.0, top_k: int = 0,
+                  top_p: float = 1.0, row_ctl=None) -> torch.Tensor:
+    """The logits a protocol step's draw is taken over: per-row controls
+    ``row_ctl`` [B, 3] or batch controls on the f32 log-softmax, or, with
+    neither, the reference's double softmax (a softmax here, the draw's
+    own second)."""
+    if row_ctl is not None:
+        return sampling_controls_rows(
+            torch.log_softmax(scores.float(), dim=-1), row_ctl[:, 0],
+            row_ctl[:, 1], row_ctl[:, 2])
+    if controlled:
+        return sampling_controls(torch.log_softmax(scores.float(), dim=-1),
+                                 temperature, top_k, top_p)
+    return torch.softmax(scores, dim=-1)
 
 
 def run_beam(step_fn: StepFn, init_state, batch_size: int, max_len: int,

@@ -67,20 +67,41 @@ def additive_scores_plan(b: int, t: int, l: int, h: int, bwd=None) -> dict:
     added in cluster order by a launch of its own. ``bwd`` forces a layout
     (for comparisons on the card). Raises ValueError on a shape no layout
     takes."""
-    if not (8 <= h <= 256 and h % 8 == 0) or t < 1 or l < 1 \
-            or not 1 <= b <= 65535:
-        raise ValueError(f"additive_scores: the kernels take a hidden width "
-                         f"divisible by 8 in [8, 256], T >= 1, L >= 1 and "
-                         f"1 <= B <= 65535; got B={b}, T={t}, L={l}, H={h}")
+    refusal = _refusal(b, t, l, h)
+    if refusal:
+        raise ValueError(f"additive_scores: {refusal}")
     return {"fwd": _fwd_plan(b, t, l), "bwd": _bwd_plan(b, t, l, h, bwd)}
 
 
-def _fwd_plan(b, t, l):
+def additive_scores_fits(b: int, t: int, l: int, h: int) -> bool:
+    """Whether the kernels take wq [b, t, h] and uh [b, l, h]: True exactly
+    where ``additive_scores_plan`` (with its default backward layout) lays
+    out the launches, False where it raises. Callers route the other
+    shapes to the dense path before the call (``ops/bilinear``)."""
+    return not _refusal(b, t, l, h)
+
+
+def _fwd_grid(b, t, l):
     keys = 8 if b * t * _cdiv(l, 8) >= 16 * _SMS else 4   # 16 warps an SM
-    grid = (b * t, _cdiv(l, 4 * keys))
+    return keys, (b * t, _cdiv(l, 4 * keys))
+
+
+def _refusal(b, t, l, h) -> str:
+    """Why the kernels refuse the shape, or "" where they take it (the
+    default backward layouts take every shape the forward takes)."""
+    if not (8 <= h <= 256 and h % 8 == 0) or t < 1 or l < 1 \
+            or not 1 <= b <= 65535:
+        return (f"the kernels take a hidden width divisible by 8 in [8, "
+                f"256], T >= 1, L >= 1 and 1 <= B <= 65535; got B={b}, "
+                f"T={t}, L={l}, H={h}")
+    grid = _fwd_grid(b, t, l)[1]
     if grid[0] >= 2 ** 31 or grid[1] > 65535:
-        raise ValueError(f"additive_scores: a forward grid of {grid} blocks "
-                         f"is beyond CUDA's limits")
+        return f"a forward grid of {grid} blocks is beyond CUDA's limits"
+    return ""
+
+
+def _fwd_plan(b, t, l):
+    keys, grid = _fwd_grid(b, t, l)
     return {"keys_a_warp": keys, "grid": grid}
 
 

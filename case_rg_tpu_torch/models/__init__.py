@@ -1,5 +1,5 @@
-"""Models of the port (counterparts of ``case_rg_tpu/models``). CaSE is the
-one ported so far."""
+"""Models of the port (counterparts of ``case_rg_tpu/models``): CaSE,
+Masque, S2SA, GTTP, GLKS and TMemNet."""
 
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from ..config import ModelConfig
 from ..device import resolve_device
 from ..ops.attention import MultiHeadAttention
 from ..ops.embedding import Embedding
+from ..ops.gru import GRU
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -26,7 +27,8 @@ def _xavier_uniform_(w: torch.Tensor, generator: torch.Generator) -> None:
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """The flax initializers: xavier-uniform for Dense weights, the packed
-    QKV projection and embeddings; zero biases; LayerNorm ones/zeros."""
+    QKV projection, embeddings and GRU weights; zero biases; LayerNorm
+    ones/zeros."""
     for mod in module.modules():
         if isinstance(mod, nn.Linear):
             _xavier_uniform_(mod.weight, generator)
@@ -40,16 +42,22 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(mod, MultiHeadAttention):
             _xavier_uniform_(mod.in_proj_weight, generator)
             mod.in_proj_bias.zero_()
+        elif isinstance(mod, GRU):
+            for name, p in mod.named_parameters(recurse=False):
+                if name.startswith("w_"):
+                    _xavier_uniform_(p, generator)
+                else:
+                    p.zero_()
 
 
 @torch.no_grad()
 def perturb_affine(module: nn.Module, generator: torch.Generator,
                    scale: float = 0.1) -> None:
-    """Seeded noise on every bias and LayerNorm gain: biases become
-    ``scale * N(0, 1)`` and gains ``1 + scale * N(0, 1)``. The flax init
-    leaves them 0 and 1, where a checkpoint's are not; checks of code that
-    reads them (the folded decoder stack's ``u`` and ``bout``) need them
-    nonzero."""
+    """Seeded noise on every bias (GRU biases included) and LayerNorm gain:
+    biases become ``scale * N(0, 1)`` and gains ``1 + scale * N(0, 1)``.
+    The flax init leaves them 0 and 1, where a checkpoint's are not; checks
+    of code that reads them (the folded decoder stack's ``u`` and ``bout``)
+    need them nonzero."""
     def noise(p):
         return scale * torch.randn(p.shape, generator=generator,
                                    device=p.device).to(p.dtype)
@@ -61,6 +69,10 @@ def perturb_affine(module: nn.Module, generator: torch.Generator,
             p = getattr(mod, name, None)
             if isinstance(p, nn.Parameter):
                 p.copy_(noise(p))
+        if isinstance(mod, GRU):
+            for name, p in mod.named_parameters(recurse=False):
+                if name.startswith("b_"):
+                    p.copy_(noise(p))
 
 
 def build_model_cfg(base: ModelConfig, name: str, vocab) -> ModelConfig:
@@ -72,13 +84,20 @@ def build_model_cfg(base: ModelConfig, name: str, vocab) -> ModelConfig:
 
 def create_model(name: str, cfg: ModelConfig, *, device="cuda",
                  seed: int = 0) -> nn.Module:
-    """Build ``name`` with weights drawn from ``seed`` on ``device`` (in
-    f32, then cast once to ``cfg.param_dtype``). Raises without a card
-    unless ``device="cpu"``."""
-    if name != "case":
-        raise ValueError(f"model {name!r} is not ported yet (only 'case')")
-    dev = resolve_device(device)
+    """Build ``name`` (one of ``config.MODEL_NAMES``) with weights drawn
+    from ``seed`` on ``device`` (in f32, then cast once to
+    ``cfg.param_dtype``). Raises without a card unless ``device="cpu"``."""
     from .case import CaSEModel
-    model = CaSEModel(cfg, device=dev, dtype=torch.float32)
+    from .glks import GLKSModel
+    from .gttp import GTTPModel
+    from .masque import MasqueModel
+    from .s2sa import S2SAModel
+    from .tmemnet import TMemNetModel
+    classes = {"case": CaSEModel, "masque": MasqueModel, "s2sa": S2SAModel,
+               "gttp": GTTPModel, "glks": GLKSModel, "tmemnet": TMemNetModel}
+    if name not in classes:
+        raise ValueError(f"unknown model {name!r} (one of {sorted(classes)})")
+    dev = resolve_device(device)
+    model = classes[name](cfg, device=dev, dtype=torch.float32)
     init_weights(model, torch.Generator(device=dev).manual_seed(seed))
     return model.to(_DTYPES[cfg.param_dtype]).eval()

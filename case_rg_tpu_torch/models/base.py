@@ -3,6 +3,8 @@ optional per-sample weight vector, so a padded final batch is
 loss-identical to a ragged one:
 
 * ``nll_from_probs``: mean of -log(p + 1e-8) over non-PAD target tokens;
+* ``cross_entropy``: token cross entropy over non-PAD targets (S2SA's and
+  TMemNet's loss);
 * ``bce_with_logits``: elementwise sigmoid BCE, mean over all elements;
 * ``one_hot_labels``: the scatter(1, label, 1) one-hot (zeros out of
   range).
@@ -47,3 +49,14 @@ def one_hot_labels(indices: torch.Tensor, num: int) -> torch.Tensor:
     than ``num_passage``)."""
     return (indices.long()[..., None]
             == torch.arange(num, device=indices.device)).float()
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  sample_weight=None) -> torch.Tensor:
+    """Token-level cross entropy over non-PAD targets (ignore_index 0).
+    logits: [B, T, V], targets: [B, T]."""
+    w = _expand_weight(sample_weight, targets.shape[0], targets.device)
+    tok_w = (targets != 0).float() * w[:, None]
+    logp = torch.log_softmax(logits, dim=-1)
+    picked = logp.gather(-1, targets.long()[..., None])[..., 0]
+    return -(picked * tok_w).sum() / tok_w.sum().clamp_min(1.0)

@@ -6,16 +6,21 @@ The scores go through ``kernels/additive_attention.additive_scores`` (the
 CUDA kernels on the card, forward and backward, without the [.., Lq, Lk,
 H] tensor) when ``set_additive_kernel`` routes them there: None = auto
 (bf16 on the card), True = always, False = never (the dense tanh + linear
-path)."""
+path). A site the kernels do not take goes dense by its shape, before the
+call: query and key leading shapes that differ (GLKS's window attention),
+or a shape ``additive_scores_fits`` refuses (GLKS's matching attention at
+H = 512, or a batch past the grid). ``DENSE_SITES`` counts those calls
+where the kernel was otherwise asked for, so none is bypassed unseen."""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
-from ..kernels.additive_attention import additive_scores
+from ..kernels.additive_attention import additive_scores, additive_scores_fits
 from .masking import masked_softmax, neg_inf
 
 _ADDITIVE_KERNEL = None
@@ -27,12 +32,30 @@ def set_additive_kernel(on) -> None:
     _ADDITIVE_KERNEL = on
 
 
+# calls sent dense where the kernel was asked for, by "reason: shapes"
+DENSE_SITES: Dict[str, int] = {}
+
+
+def _dense_site(reason: str, shapes: str) -> bool:
+    key = f"{reason}: {shapes}"
+    DENSE_SITES[key] = DENSE_SITES.get(key, 0) + 1
+    return False
+
+
 def _additive_kernel_ok(wq: torch.Tensor, uh: torch.Tensor) -> bool:
-    if _ADDITIVE_KERNEL is False or wq.shape[:-2] != uh.shape[:-2]:
+    if _ADDITIVE_KERNEL is False:
         return False
-    if _ADDITIVE_KERNEL:
-        return True
-    return wq.dtype == torch.bfloat16 and wq.device.type == "cuda"
+    if not _ADDITIVE_KERNEL and not (wq.dtype == torch.bfloat16
+                                     and wq.device.type == "cuda"):
+        return False
+    lead = wq.shape[:-2]
+    if lead != uh.shape[:-2]:
+        return _dense_site("leading shapes differ",
+                           f"wq {tuple(wq.shape)} uh {tuple(uh.shape)}")
+    b, (t, h), l = math.prod(lead), wq.shape[-2:], uh.shape[-2]
+    if not additive_scores_fits(b, t, l, h):
+        return _dense_site("the plan refuses", f"B={b} T={t} L={l} H={h}")
+    return True
 
 
 class BilinearAttention(nn.Module):

@@ -1,5 +1,6 @@
 """Continuous batching for greedy and sampled serving (port of
-``case_rg_tpu/runtime/continuous``; CaSE).
+``case_rg_tpu/runtime/continuous``; every model: CaSE's and Masque's own
+chunked decode, the others' through ``models/predict.py``).
 
 A fixed-batch decode runs every row for all ``max_len`` steps (or, with
 early exit, until the last row ends). Here rows progress on their own:
@@ -9,7 +10,8 @@ tracks the mean answer length instead of the longest.
 
 The decode state is a dict of fixed-shape [B, ...] tensors (per-row step
 indices, KV caches, memories, copy operands: ``models/multimem.py``
-``chunk_init``/``chunk_step``); a refill is a row scatter of a freshly
+``chunk_init``/``chunk_step``, or ``models/predict.py``'s encode and
+decoder state); a refill is a row scatter of a freshly
 encoded state of ``refill`` rows into the live one. The decode math is
 row-independent (a sampled row draws from its own key), so a request's
 answer is the one-shot ``predict``'s whatever the batch it rides in (bit

@@ -6,6 +6,7 @@ the lazy rank handle. See the package docstring for the design.
 
 from __future__ import annotations
 
+import functools
 import queue
 from typing import Iterator, List
 
@@ -72,12 +73,27 @@ def refill_rows(state: dict, new_state: dict, rows) -> dict:
     return state
 
 
+def chunk_methods(model):
+    """(init(batch, max_len=, fast_argmax=), chunk(state, n_steps=, ...)):
+    the model's own ``decode_init``/``decode_chunk`` (CaSE, Masque), or the
+    step protocol's ``models.predict.continuous_decode_init``/``_chunk``
+    (S2SA, GTTP, GLKS, TMemNet)."""
+    if hasattr(model, "decode_init"):
+        return model.decode_init, model.decode_chunk
+    if not hasattr(model, "decode_step"):
+        raise ValueError(f"{type(model).__name__} has no chunked decode")
+    from ...models.predict import (continuous_decode_chunk,
+                                   continuous_decode_init)
+    return (functools.partial(continuous_decode_init, model),
+            functools.partial(continuous_decode_chunk, model))
+
+
 def make_continuous_fns(model, max_len: int, chunk_steps: int,
                         fast_argmax=None, decoding: str = "greedy",
                         temperature: float = 1.0, top_k: int = 0,
                         top_p: float = 1.0, device="cuda"):
-    """(init_fn, chunk_fn, refill_fn) for a model with ``decode_init`` and
-    ``decode_chunk`` (CaSE).
+    """(init_fn, chunk_fn, refill_fn) for any model of the port
+    (``chunk_methods``).
 
     init_fn(batch) -> (state, rank) moves the batch to the model's device
     and encodes it; chunk_fn(state) advances every live row by
@@ -101,9 +117,7 @@ def make_continuous_fns(model, max_len: int, chunk_steps: int,
     where = next(model.parameters()).device
     if where.type != dev.type:
         raise ValueError(f"model lives on {where}, not on {dev}")
-    if not hasattr(model, "decode_init"):
-        raise ValueError(f"{type(model).__name__} has no chunked decode "
-                         "(not ported yet)")
+    init_m, chunk_m = chunk_methods(model)
     # sampling reads the dense extended distribution: no argmax operands
     # ride in its state
     fa = False if sampling else fast_argmax
@@ -115,13 +129,13 @@ def make_continuous_fns(model, max_len: int, chunk_steps: int,
             raise ValueError("decoding='sample' needs per-row 'sample_key' "
                              "keys in the batch")
         with torch.inference_mode():
-            return model.decode_init(batch_to_device(batch, where),
-                                     max_len=max_len, fast_argmax=fa)
+            return init_m(batch_to_device(batch, where), max_len=max_len,
+                          fast_argmax=fa)
 
     def chunk_fn(state):
         with torch.inference_mode():
-            return model.decode_chunk(state, n_steps=chunk_steps,
-                                      fast_argmax=fa, **extra)
+            return chunk_m(state, n_steps=chunk_steps, fast_argmax=fa,
+                           **extra)
 
     return init_fn, chunk_fn, refill_rows
 

@@ -87,8 +87,8 @@ import torch
 from ...decode.loops import validate_controls
 from ...device import batch_to_device, resolve_device
 from ..graphs import CapturedGraph
-from .base import (HostCopy, IterSource, _LazyRank, host_to_device, leaves,
-                   refill_rows, tree_map)
+from .base import (HostCopy, IterSource, _LazyRank, chunk_methods,
+                   host_to_device, leaves, refill_rows, tree_map)
 
 _HARVEST = ("uid", "out", "trow", "count", "chunks", "cursor")
 _LIVE = ("live_uid", "live_alive", "live_out", "live_trow")
@@ -180,6 +180,7 @@ class DeviceLoopFns:
         self._extra = extra
         self._sampling = sampling
         self._where = next(model.parameters()).device
+        self._init_m, self._chunk_m = chunk_methods(model)
         self._lanes: Dict[tuple, _Lane] = {}
 
     # ---- host-side programs ----
@@ -191,7 +192,7 @@ class DeviceLoopFns:
             raise ValueError("decoding='sample' needs per-row 'sample_key' "
                              "keys in the batch")
         with torch.inference_mode():
-            return self.model.decode_init(
+            return self._init_m(
                 batch_to_device(batch, self._where), max_len=self.max_len,
                 fast_argmax=self._fa)
 
@@ -297,8 +298,8 @@ class DeviceLoopFns:
                                                     < lane.written)
             log["chunks"] += running
             self._boundary(lane)
-            new = self.model.decode_chunk(live, n_steps=self.chunk_steps,
-                                          fast_argmax=self._fa, **self._extra)
+            new = self._chunk_m(live, n_steps=self.chunk_steps,
+                                fast_argmax=self._fa, **self._extra)
             for k in ("prev", "trow", "done", "out"):
                 live[k].copy_(new[k])
         self._boundary(lane)
@@ -339,8 +340,8 @@ def make_device_loop_fns(model, max_len: int, chunk_steps: int,
                          fast_argmax=None, decoding: str = "greedy",
                          temperature: float = 1.0, top_k: int = 0,
                          top_p: float = 1.0, device="cuda") -> DeviceLoopFns:
-    """The device loop's programs for a model with ``decode_init`` and
-    ``decode_chunk`` (CaSE), as a ``DeviceLoopFns``:
+    """The device loop's programs for any model of the port (its chunked
+    decode: ``base.chunk_methods``), as a ``DeviceLoopFns``:
 
     * ``init_fn(batch)`` -> (state, rank): one encoded bucket;
     * ``wrap_fn(state, uid, alive)`` -> wrap: the bucket as the lane's live
@@ -367,9 +368,7 @@ def make_device_loop_fns(model, max_len: int, chunk_steps: int,
     where = next(model.parameters()).device
     if where.type != dev.type:
         raise ValueError(f"model lives on {where}, not on {dev}")
-    if not hasattr(model, "decode_init"):
-        raise ValueError(f"{type(model).__name__} has no chunked decode "
-                         "(not ported yet)")
+    chunk_methods(model)          # raises for a model without one
     if stage_rows < 1 or n_chunks < 1 or chunk_steps < 1:
         raise ValueError("stage_rows, n_chunks and chunk_steps must be >= 1")
     fa = False if sampling else fast_argmax

@@ -1,5 +1,12 @@
-"""Inference dispatch (port of ``case_rg_tpu/runtime/inference.py`` for
-CaSE: greedy, beam and sampled serving, and rank-only serving)."""
+"""Inference dispatch (port of ``case_rg_tpu/runtime/inference.py``):
+each model's test-time outputs, greedy, beam or sampled, and rank-only
+serving.
+
+* case, masque -> {"answer", "rank"} through their own ``predict``;
+* tmemnet -> {"answer", "rank"}: one encode gives the decode memories and
+  the knowledge attention (the rank), except under beam search;
+* s2sa, gttp, glks -> {"answer"} through ``models/predict.py``.
+"""
 
 from __future__ import annotations
 
@@ -11,8 +18,10 @@ import torch
 from ..config import ModelConfig
 from ..decode.loops import keys_from_seed, validate_controls
 from ..device import batch_to_device, resolve_device
+from ..models.predict import beam_predict, greedy_predict, sample_predict
 
-RANK_MODELS = ("case",)
+PROTOCOL_MODELS = ("s2sa", "gttp", "glks", "tmemnet")
+RANK_MODELS = ("case", "masque", "tmemnet")
 
 
 def make_predict_fn(model, cfg: ModelConfig, max_len: int, *,
@@ -22,14 +31,17 @@ def make_predict_fn(model, cfg: ModelConfig, max_len: int, *,
                     top_k: int = 0, top_p: float = 1.0,
                     rank_only: bool = False, device="cuda"
                     ) -> Callable[[dict], Dict[str, torch.Tensor]]:
-    """A function batch -> {"answer" [B, max_len] int32, "rank" [B, P]}, or
-    -> {"rank"} with ``rank_only``. Batches hold "query" [B, 1, Lq] and
-    "passage" [B, P, Lp] ids, as numpy arrays or tensors; they are moved to
-    ``device``, where ``model`` must live.
+    """A function batch -> {"answer" [B, max_len] int32, "rank" [B, P]} ("rank"
+    for the ``RANK_MODELS`` only), or -> {"rank"} with ``rank_only``.
+    Batches hold the model's featurized fields ("query" [B, 1, Lq] and
+    "passage" [B, P, Lp] ids for case and masque, "context" and
+    "background" or "passage" for the others), as numpy arrays or
+    tensors; they are moved to ``device``, where ``model`` must live.
 
     ``decoding="greedy"``: greedy (``early_exit`` and the argmax mode
-    ``fast_argmax`` as on ``MultiMemoryDecoder.decode``), or beam search
-    with ``beam_width > 1``. ``decoding="sample"``: categorical sampling
+    ``fast_argmax`` as on ``MultiMemoryDecoder.decode``; for GTTP and GLKS
+    ``models.predict.fast_copy_on``), or beam search with ``beam_width >
+    1``. ``decoding="sample"``: categorical sampling
     with the temperature/top_k/top_p controls; a batch's per-row keys are
     its "sample_key" [B, 2] if it has one, else drawn from ``sample_seed``
     and the call's index (each call draws afresh, the same sequence on
@@ -39,12 +51,18 @@ def make_predict_fn(model, cfg: ModelConfig, max_len: int, *,
     where = next(model.parameters()).device
     if where.type != dev.type:
         raise ValueError(f"model lives on {where}, not on {dev}")
-    if cfg.name not in RANK_MODELS:
-        raise ValueError(f"model {cfg.name!r} is not ported yet")
+    name = cfg.name
+    if name not in RANK_MODELS + PROTOCOL_MODELS:
+        raise ValueError(f"unknown model {name!r}")
     if decoding not in ("greedy", "sample"):
         raise ValueError(f"unknown decoding {decoding!r}")
+    protocol = name in PROTOCOL_MODELS
 
     if rank_only:
+        if name not in RANK_MODELS:
+            raise ValueError(f"model {name!r} has no rank head (rank_only "
+                             f"needs one of {RANK_MODELS})")
+
         def fn(batch):
             with torch.inference_mode():
                 return {"rank": model.rank(batch_to_device(batch, where))}
@@ -61,19 +79,50 @@ def make_predict_fn(model, cfg: ModelConfig, max_len: int, *,
             batch = batch_to_device(batch, where)
             keys = batch.get("sample_key")
             if keys is None:
-                keys = keys_from_seed(sample_seed, batch["query"].shape[0],
+                keys = keys_from_seed(sample_seed, _rows(batch),
                                       stream=next(counter), device=where)
             with torch.inference_mode():
-                return model.predict(batch, max_len=max_len,
-                                     sample_keys=keys,
-                                     temperature=temperature, top_k=top_k,
-                                     top_p=top_p)
+                if not protocol:
+                    return model.predict(batch, max_len=max_len,
+                                         sample_keys=keys,
+                                         temperature=temperature,
+                                         top_k=top_k, top_p=top_p)
+                enc = model.encode(batch)
+                out = {"answer": sample_predict(
+                    model, batch, max_len, keys, enc=enc,
+                    temperature=temperature, top_k=top_k, top_p=top_p)}
+                if name in RANK_MODELS:
+                    out["rank"] = enc["ck_attn"]
+                return out
         return fn
 
     def fn(batch):
+        batch = batch_to_device(batch, where)
         with torch.inference_mode():
-            return model.predict(batch_to_device(batch, where),
-                                 max_len=max_len, early_exit=early_exit,
-                                 fast_argmax=fast_argmax,
-                                 beam_width=beam_width)
+            if not protocol:
+                return model.predict(batch, max_len=max_len,
+                                     early_exit=early_exit,
+                                     fast_argmax=fast_argmax,
+                                     beam_width=beam_width)
+            if beam_width > 1:
+                out = {"answer": beam_predict(model, batch, max_len,
+                                              beam_width)}
+                if name in RANK_MODELS:
+                    out["rank"] = model.rank(batch)
+                return out
+            enc = model.encode(batch)
+            out = {"answer": greedy_predict(model, batch, max_len,
+                                            early_exit=early_exit, enc=enc,
+                                            fast_copy=fast_argmax)}
+            if name in RANK_MODELS:
+                # one encode: the decode memories and the rank scores
+                out["rank"] = enc["ck_attn"]
+            return out
     return fn
+
+
+def _rows(batch) -> int:
+    for k in ("query", "context"):
+        if k in batch:
+            return batch[k].shape[0]
+    raise KeyError("a batch needs 'query' or 'context'")

@@ -114,19 +114,23 @@ class PreemptionGuard:
 class _Losses(nn.Module):
     """``model.train_losses`` as a module's forward, for functional_call."""
 
-    def __init__(self, model: nn.Module):
+    def __init__(self, model: nn.Module, kwargs: dict):
         super().__init__()
         self.model = model
+        self.kwargs = kwargs
 
     def forward(self, batch, gen):
-        return self.model.train_losses(batch, gen)
+        return self.model.train_losses(batch, gen, **self.kwargs)
 
 
 class Trainer:
     def __init__(self, model: nn.Module, train_cfg: TrainConfig,
-                 total_steps: int, *, device="cuda"):
-        """``model``: f32 parameters on ``device``. Raises without a card
-        unless ``device="cpu"``."""
+                 total_steps: int, *, device="cuda",
+                 loss_method_kwargs: Optional[dict] = None):
+        """``model``: f32 parameters on ``device``. ``loss_method_kwargs``
+        go to every ``train_losses`` call, training and evaluation (GLKS's
+        ``mode="ds_mle_mce_train"``, ``mode="ps_train"`` for Masque and
+        TMemNet). Raises without a card unless ``device="cpu"``."""
         dev = resolve_device(device)
         where = next(model.parameters()).device
         if where.type != dev.type:
@@ -140,7 +144,7 @@ class Trainer:
         self.schedule = cosine_hard_restarts_with_warmup(
             train_cfg.learning_rate, train_cfg.warmup_steps, total_steps,
             train_cfg.num_cycles)
-        self._losses = _Losses(model)
+        self._losses = _Losses(model, dict(loss_method_kwargs or {}))
         self._bf16 = train_cfg.compute_dtype == "bfloat16"
 
     def init_state(self) -> TrainState:

@@ -173,7 +173,33 @@ In order it
      checkpoint write and load seconds and bytes, the batch's
      host-to-device copy from pageable and from pinned memory, test
      samples/s and the phase's seconds;
- 14. prints one JSON line {"kernels": [...]} and, last, the device line
+ 14. serves and trains the other five models ("other models"): Masque,
+     S2SA, GTTP, GLKS and TMemNet, each at the serving widths (V=30522,
+     E = H = 256, 8 heads; Masque 3 encoder and 2x4 decoder layers,
+     TMemNet 8 + 8, the GRU models their JAX defaults; bf16 weights from
+     seed 0 with noisy biases and gains) on CAsT shapes (query or context
+     60, a pool of 10x100 or its 1000 positions as background, 40-step
+     decode, B=64; phase 7's requests in each model's fields). Per model:
+     (a) two greedy batches through make_predict_fn, every launch counter
+     set to 0 just before and read just after and held to the model's
+     launches (OTHER_LAUNCHES), then the same batches with each kernel's
+     wrapper swapped for its plain version (answers gated as in phase 4,
+     beside the exact-f64-sum witness of the encoder attention and of the
+     copy attentions; rank scores within RANK_ULPS), ms per encode, the
+     additive sites sent dense (ops/bilinear.DENSE_SITES) and a profiled
+     batch; (b) a rank-only batch (masque, tmemnet); (c) beam width 4 and
+     sampling at top_k=1 (gated against greedy); (f) masque, gttp and glks
+     in the pallas argmax mode (combine_copy_mass launches a step; gated
+     against its plain version and against dense); (d) 256 requests through
+     the chunk loop (batch 64, refill 16, chunks of 8; equal to the
+     one-shot greedy answers token for token) and the device loop (4 steps a chunk, 8 chunks a mega,
+     a ring of 256, lookahead; equal to the chunk loop token for token,
+     launches reckoned from the capture); (e) bf16 training over f32
+     masters: the first step's loss and gradient against the plain
+     versions, 10 steps on one batch (the loss without dropout must fall;
+     the training attention's and additive_scores' launches counted), one
+     step under no_host_sync. A line per model, then the phase's summary;
+ 15. prints one JSON line {"kernels": [...]} and, last, the device line
      {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -3491,6 +3517,538 @@ def raw_files(dev, bare_ms):
     return res
 
 
+# ---- phase 14: the other models (Masque, S2SA, GTTP, GLKS, TMemNet) ----
+
+OTHER_MODELS = ("masque", "s2sa", "gttp", "glks", "tmemnet")
+RANK_MODELS = ("masque", "tmemnet")
+COPY_MODELS = ("masque", "gttp", "glks")      # fast_argmax="pallas" combines
+OTHER_REQUESTS = 256
+# requests of the continuous loops' warm-up runs (a full batch and a
+# refill: every program shape of the loop, the device loop's capture)
+WARM_REQUESTS = B + REFILL
+TMEMNET_LAYERS = 8
+# The kernels of each model's serving path and their launches per B=64
+# greedy batch (40 steps; dense argmax): Masque as CaSE without the
+# token-identification tower (encoder 2 x 3 + the selection tower 3 + 5
+# fused_mha sites; the passage stack's stack_step; the query stack's 4
+# layers x 2 single-query attentions; the copy attention over both
+# memories); TMemNet 8 encoder layers over the context and the pool, 8
+# decoder layers x 2 single-query attentions a step; S2SA and GTTP the
+# attention over the context and the background a step, GLKS three a step
+# (copy, vocabulary-context, vocabulary-background; its knowledge
+# selector's two sites go dense: ops/bilinear.DENSE_SITES).
+OTHER_LAUNCHES = {
+    "masque": {"fused_mha": 2 * ENC_LAYERS + 8, "stack_step": T_ANS,
+               "single_query_mha": 2 * DEC_LAYERS * T_ANS,
+               "additive_scores": 2 * T_ANS},
+    "s2sa": {"additive_scores": 2 * T_ANS},
+    "gttp": {"additive_scores": 2 * T_ANS},
+    "glks": {"additive_scores": 3 * T_ANS},
+    "tmemnet": {"fused_mha": 2 * TMEMNET_LAYERS,
+                "single_query_mha": 2 * TMEMNET_LAYERS * T_ANS}}
+OTHER_KERNELS = ("fused_mha", "stack_step", "single_query_mha",
+                 "additive_scores", "combine_copy_mass")
+
+
+def other_cfg(name, dtype):
+    """``name`` at CaSE's serving widths: V=30522, E = H = 256, 8 heads;
+    Masque 3 encoder and 2 x 4 decoder layers, TMemNet 8 + 8; the GRU
+    models' JAX defaults (one GRU layer, embedding dropout 0.5, GLKS windows
+    of 4); transformer dropout 0.1."""
+    from case_rg_tpu_torch.config import ModelConfig
+    return ModelConfig(name=name, vocab_size=V, embedding_size=E,
+                       hidden_size=E, num_heads=H, enc_layers=ENC_LAYERS,
+                       dec_layers=DEC_LAYERS, tmemnet_layers=TMEMNET_LAYERS,
+                       max_dec_len=T_ANS, max_target_length=T_ANS,
+                       dropout=RATE, param_dtype=dtype)
+
+
+def as_model(name, reqs):
+    """The requests of ``make_requests`` (query 60, pool 10 x 100) in
+    ``name``'s fields: Masque's query and pool; TMemNet's context and pool;
+    the GRU models' context and background (the pool's 1000 positions)."""
+    q, pool = reqs["query"], reqs["passage"]
+    if name == "masque":
+        return {"query": q, "passage": pool}
+    if name == "tmemnet":
+        # TMemNet's featurizer fills a pool's missing passages with a lone
+        # [UNK] (data/featurize.py); an empty one would pool over nothing
+        pool = pool.copy()
+        pool[:, :, 0] = np.where((pool != 0).any(-1), pool[:, :, 0], 2)
+        return {"context": q[:, 0], "passage": pool}
+    return {"context": q[:, 0], "background": pool.reshape(len(q), -1)}
+
+
+def other_train_batch(name, cfg, data, rng):
+    """A B=64 batch with what training reads: a response of variable
+    length, a gold passage and, for GLKS, a one-hot window selection."""
+    bt = take(data, slice(0, B))
+    resp = rng.randint(4, V, size=(B, T_ANS)).astype(np.int32)
+    for i, n in enumerate(rng.randint(T_ANS // 4, T_ANS + 1, size=B)):
+        resp[i, n:] = 0
+    bt["response"] = resp
+    bt["passage_label"] = rng.randint(0, P, size=B).astype(np.int32)
+    if name == "glks":
+        w = (P * LP - cfg.min_window_size) // cfg.min_window_size + 1
+        bt["selection"] = np.eye(w, dtype=np.float32)[rng.randint(0, w, B)]
+    return bt
+
+
+def additive_exact_sums(wq, uh, v):
+    """additive_scores' function with its rounding points (wq + uh and the
+    tanh to the input dtype) and the sum over h in f64, rounded once: the
+    rounding witness of the copy attentions (as mha_exact_sums is of the
+    encoder's)."""
+    th = torch.tanh(wq[:, :, None, :] + uh[:, None, :, :])
+    return (th.double() * v.double()).sum(-1).to(wq.dtype)
+
+
+def kernel_counts():
+    from case_rg_tpu_torch.kernels import (additive_attention, copy_argmax,
+                                           decode_attention, decoder_stack,
+                                           encoder_attention)
+    mods = (encoder_attention, decoder_stack, decode_attention,
+            additive_attention, copy_argmax)
+    return {k: m.LAUNCHES for k, m in zip(OTHER_KERNELS, mods)}
+
+
+def reset_kernel_counts():
+    from case_rg_tpu_torch.kernels import (additive_attention, copy_argmax,
+                                           decode_attention, decoder_stack,
+                                           encoder_attention)
+    for m in (encoder_attention, decoder_stack, decode_attention,
+              additive_attention, copy_argmax):
+        m.LAUNCHES = 0
+
+
+class swapped:
+    """Within ``with``, each serving kernel's wrapper at the modules that
+    call it replaced by ``fns`` (fused_mha, stack_step, single_query_mha,
+    additive_scores, combine_copy_mass)."""
+
+    def __init__(self, *fns):
+        from case_rg_tpu_torch.kernels import copy_argmax
+        from case_rg_tpu_torch.models import multimem
+        from case_rg_tpu_torch.ops import attention, bilinear
+        self.sites = ((attention, "fused_mha"), (multimem, "stack_step"),
+                      (attention, "single_query_mha"),
+                      (bilinear, "additive_scores"),
+                      (copy_argmax, "combine_copy_mass"))
+        self.fns = fns
+
+    def __enter__(self):
+        self.saved = [getattr(m, n) for m, n in self.sites]
+        for (m, n), f in zip(self.sites, self.fns):
+            setattr(m, n, f)
+
+    def __exit__(self, *exc):
+        for (m, n), f in zip(self.sites, self.saved):
+            setattr(m, n, f)
+
+
+def plain_fns():
+    from case_rg_tpu_torch.kernels import additive_attention as aa
+    from case_rg_tpu_torch.kernels import copy_argmax as ca
+    from case_rg_tpu_torch.kernels import decode_attention as da
+    from case_rg_tpu_torch.kernels import decoder_stack as ds
+    from case_rg_tpu_torch.kernels import encoder_attention as ea
+    return (ea.fused_mha_plain, ds.stack_step_plain,
+            da.single_query_mha_plain, aa.additive_scores_plain,
+            ca.combine_copy_mass_plain)
+
+
+def answers_agree(outs, refs, ranked: bool):
+    """The shares of answer tokens and of first tokens that agree, and, for
+    the models with a rank head, the rank scores' max bf16 ulps."""
+    same = first = 0
+    ulps = 0.0
+    for o, r in zip(outs, refs):
+        same += int((o["answer"] == r["answer"]).sum())
+        first += int((o["answer"][:, 0] == r["answer"][:, 0]).sum())
+        if ranked:
+            ulps = max(ulps, bf16_ulps(o["rank"], r["rank"])[0])
+    res = {"token_agreement": same / (len(outs) * B * T_ANS),
+           "first_token_agreement": first / (len(outs) * B)}
+    if ranked:
+        res["rank_max_ulps"] = ulps
+    return res
+
+
+def check_agreement(got, what, witness=None):
+    check(got["token_agreement"] >= MIN_TOKEN_AGREEMENT
+          and got["first_token_agreement"] >= MIN_FIRST_TOKEN_AGREEMENT,
+          f"{what}: {got}")
+    if "rank_max_ulps" in got:
+        check(got["rank_max_ulps"] <= RANK_ULPS, f"{what}: rank {got}")
+    if witness is not None:
+        for key in ("token_agreement", "first_token_agreement"):
+            check(got[key] >= witness[key] - AGREEMENT_SLACK,
+                  f"{what}: {key} {got[key]}, the exact-sum witness "
+                  f"{witness[key]}")
+
+
+def dense_sites_since(before):
+    from case_rg_tpu_torch.ops import bilinear
+    return {k: v - before.get(k, 0) for k, v in bilinear.DENSE_SITES.items()
+            if v != before.get(k, 0)}
+
+
+def serve_other(dev, name):
+    """One model of the phase at full width (see OTHER_LAUNCHES and the
+    module docstring, phase 14). Returns its printed record."""
+    from case_rg_tpu_torch.models import create_model, perturb_affine
+    from case_rg_tpu_torch.ops import bilinear
+    from case_rg_tpu_torch.runtime.inference import make_predict_fn
+    t_phase = time.perf_counter()
+    cfg = other_cfg(name, "bfloat16")
+    model = create_model(name, cfg, device=dev, seed=0)
+    perturb_affine(model, torch.Generator(device=dev).manual_seed(1))
+    reqs, caps = make_requests(np.random.RandomState(3), OTHER_REQUESTS)
+    data = as_model(name, reqs)
+    batches = [take(data, slice(i * B, (i + 1) * B)) for i in range(2)]
+    ranked = name in RANK_MODELS
+    res = {"params": sum(p.numel() for p in model.parameters())}
+
+    # (a) greedy through make_predict_fn, launches counted; the kernels
+    # against their plain versions and the exact-sum witness
+    predict = make_predict_fn(model, cfg, T_ANS, device=dev)
+    predict(batches[0])                                # warm-up
+    torch.cuda.synchronize()
+    dense_before = dict(bilinear.DENSE_SITES)
+    reset_kernel_counts()
+    outs, times = serve(predict, batches)
+    launches = kernel_counts()
+    res["dense_sites"] = dense_sites_since(dense_before)
+    want = {k: OTHER_LAUNCHES[name].get(k, 0) * len(batches)
+            for k in OTHER_KERNELS}
+    check(launches == want, f"{name} greedy: launches {launches}, expected "
+          f"{want}")
+    for out in outs:
+        a = out["answer"]
+        check(tuple(a.shape) == (B, T_ANS) and a.dtype == torch.int32
+              and bool(((a >= 0) & (a < V)).all()),
+              f"{name}: answer {tuple(a.shape)} {a.dtype} out of the vocab")
+        if ranked:
+            check(tuple(out["rank"].shape) == (B, P)
+                  and bool(torch.isfinite(out["rank"]).all()),
+                  f"{name}: rank {tuple(out['rank'].shape)} not finite")
+        else:
+            check("rank" not in out, f"{name}: a rank without a rank head")
+    plain = plain_fns()
+    reset_kernel_counts()
+    with swapped(*plain):
+        plain_outs, plain_times = serve(predict, batches)
+    check(not any(kernel_counts().values()),
+          f"{name}: kernels launched with their plain versions swapped in")
+    with swapped(mha_exact_sums, plain[1], plain[2], additive_exact_sums,
+                 plain[4]):
+        witness = answers_agree(serve(predict, batches)[0], plain_outs,
+                                ranked)
+    vs_plain = answers_agree(outs, plain_outs, ranked)
+    check_agreement(vs_plain, f"{name} greedy, kernels vs plain versions",
+                    witness)
+    res.update(launches_per_batch={k: v // len(batches)
+                                   for k, v in launches.items() if v},
+               ms_per_batch=times, plain_ms_per_batch=plain_times,
+               vs_plain=vs_plain, exact_sums_vs_plain=witness)
+    encode = (lambda bt: model._select(bt)) if name == "masque" \
+        else (lambda bt: model.encode(bt))
+    from case_rg_tpu_torch.device import batch_to_device
+    on_card = batch_to_device(batches[0], dev)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encode(on_card)
+        torch.cuda.synchronize()
+        res["encode_ms"] = (time.perf_counter() - t0) * 1e3
+    res["profile"] = profile_device(predict, batches[:1])
+
+    # (b) rank-only
+    if ranked:
+        rank_only = make_predict_fn(model, cfg, T_ANS, rank_only=True,
+                                    device=dev)
+        rank_only(batches[0])
+        reset_kernel_counts()
+        ro, ro_ms = serve(rank_only, batches[:1])
+        got = kernel_counts()
+        check(got == dict({k: 0 for k in OTHER_KERNELS},
+                          fused_mha=OTHER_LAUNCHES[name]["fused_mha"]),
+              f"{name} rank-only: launches {got}")
+        ulps, _ = bf16_ulps(ro[0]["rank"], outs[0]["rank"])
+        check(set(ro[0]) == {"rank"} and ulps <= 1,
+              f"{name} rank-only vs predict: {ulps} bf16 ulps > 1")
+        res["rank_only_ms"] = ro_ms
+
+    # (c) beam search and sampling at top_k = 1
+    beam = make_predict_fn(model, cfg, T_ANS, beam_width=BEAM_WIDTH,
+                           device=dev)
+    top1 = make_predict_fn(model, cfg, T_ANS, decoding="sample", top_k=1,
+                           device=dev)
+    b_out, b_ms = serve(beam, batches[:1])
+    a = b_out[0]["answer"]
+    check(tuple(a.shape) == (B, T_ANS) and bool(((a >= 0) & (a < V)).all()),
+          f"{name} beam: answer {tuple(a.shape)} out of the vocab")
+    s_out, s_ms = serve(top1, batches[:1])
+    vs_greedy = answers_agree(s_out, outs[:1], ranked)
+    check_agreement(vs_greedy, f"{name} sampling at top_k=1 vs greedy")
+    res["beam"] = {"width": BEAM_WIDTH, "ms": b_ms,
+                   "vs_greedy": answers_agree(b_out, outs[:1], ranked)}
+    res["sample_top_k_1"] = {"ms": s_ms, "vs_greedy": vs_greedy}
+
+    # (f) the scatter-free candidate argmax through combine_copy_mass
+    if name in COPY_MODELS:
+        fast = make_predict_fn(model, cfg, T_ANS, fast_argmax="pallas",
+                               device=dev)
+        fast(batches[0])
+        reset_kernel_counts()
+        f_out, f_ms = serve(fast, batches)
+        f_launches = kernel_counts()
+        check(f_launches["combine_copy_mass"] == T_ANS * len(batches),
+              f"{name} pallas mode: launches {f_launches}")
+        with swapped(*kernels_of(), plain[4]):
+            fp_out, _ = serve(fast, batches)
+        fvp = answers_agree(f_out, fp_out, ranked)
+        check_agreement(fvp, f"{name} pallas mode, combine vs its plain "
+                        "version")
+        fvd = answers_agree(f_out, outs, ranked)
+        check_agreement(fvd, f"{name} pallas vs dense mode")
+        res["pallas_mode"] = {"ms_per_batch": f_ms,
+                              "launches_per_batch": {
+                                  k: v // len(batches)
+                                  for k, v in f_launches.items() if v},
+                              "combine_vs_plain": fvp, "vs_dense": fvd}
+
+    # (d) continuous: the chunk loop and the device loop over 256 requests
+    res["continuous"] = serve_other_continuous(dev, name, cfg, model, data,
+                                               caps, predict)
+    del beam, top1
+    res["train"] = train_other(dev, name)
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
+def kernels_of():
+    from case_rg_tpu_torch.kernels import additive_attention as aa
+    from case_rg_tpu_torch.kernels import decode_attention as da
+    from case_rg_tpu_torch.kernels import decoder_stack as ds
+    from case_rg_tpu_torch.kernels import encoder_attention as ea
+    return (ea.fused_mha, ds.stack_step, da.single_query_mha,
+            aa.additive_scores)
+
+
+def serve_other_continuous(dev, name, cfg, model, data, caps, predict):
+    """The requests through run_continuous (batch 64, refill 16, chunks of
+    8 steps) and run_continuous_device (4 steps a chunk, 8 chunks a mega,
+    a ring of 256, lookahead; a warm-up run captures the graph), launches
+    counted around each (the device loop's as recorded launches x replays
+    plus the counters' rise). The device loop's answers equal the chunk
+    loop's token for token; the chunk loop's are held to the one-shot
+    greedy answers of the same requests (cut at each cap and EOS), token
+    for token."""
+    from case_rg_tpu_torch.runtime import graphs
+    from case_rg_tpu_torch.runtime.continuous import (make_continuous_fns,
+                                                      make_device_loop_fns,
+                                                      run_continuous,
+                                                      run_continuous_device)
+    n = len(caps)
+    make_batch = batch_maker(data, caps)
+
+    def drive(run):
+        got = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = run(lambda r, ids, rk: got.__setitem__(r["i"], (ids.copy(),
+                                                                rk)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(stats["served"] == n and sorted(got) == list(range(n)),
+              f"{name} continuous: served {stats['served']} of {n}")
+        return got, dict(stats, requests_per_s=n / wall, wall_s=wall)
+
+    fns = make_continuous_fns(model, T_ANS, CHUNK_STEPS, device=dev)
+    loop = lambda emit, k=n: run_continuous(
+        items(k), make_batch, *fns, batch_size=B, refill=REFILL, emit=emit)
+    loop(lambda r, ids, rk: None, WARM_REQUESTS)       # warm-up
+    chunk = lambda: drive(loop)
+    reset_kernel_counts()
+    base, stats = chunk()
+    res = {"chunk_loop": dict(stats, launches={
+        k: v for k, v in kernel_counts().items() if v})}
+    one = {}
+    for s in range(0, n, B):
+        out = predict(take(data, slice(s, s + B)))
+        for i, a in enumerate(out["answer"].cpu().numpy()):
+            one[s + i] = (a, None)
+    vs_one = answer_agreement(base, one, caps, cfg.eos_id)
+    vs_one["identical_answers"] = sum(
+        int(np.array_equal(base[i][0], answer_agreement_ref(one[i][0],
+                                                           caps[i],
+                                                           cfg.eos_id)))
+        for i in range(n))
+    check(vs_one["identical_answers"] == n,
+          f"{name} chunk loop vs one-shot greedy: {vs_one}")
+    res["chunk_loop"]["vs_one_shot"] = vs_one
+
+    dfns = make_device_loop_fns(model, T_ANS, DL_STEPS, DL_K, DL_RING,
+                                device=dev)
+    dloop = lambda emit, k=n: run_continuous_device(
+        items(k), make_batch, dfns, batch_size=B, refill=REFILL, emit=emit,
+        max_len=T_ANS, lookahead=True)
+    dloop(lambda r, ids, rk: None, WARM_REQUESTS)      # warm-up: captures
+    device = lambda: drive(dloop)
+    check(len(dfns.captures) == 1, f"{name} device loop: "
+          f"{len(dfns.captures)} captures in the warm-up run")
+    cap = dfns.captures[0]
+    replays0 = cap["replays"]
+    reset_kernel_counts()
+    got, dstats = device()
+    rise = graphs.launch_counts()
+    replays = cap["replays"] - replays0
+    check(replays == dstats["megas"], f"{name} device loop: {replays} "
+          f"replays for {dstats['megas']} megas")
+    launches = {k: rise[k] + cap["launches"][k] * replays for k in rise}
+    bad = [i for i in got if not np.array_equal(got[i][0], base[i][0])]
+    check(not bad, f"{name} device loop: {len(bad)} answers differ from the "
+          f"chunk loop's (first: request {bad[:1]})")
+    res["device_loop"] = dict(dstats, launches={k: v for k, v in
+                                                launches.items() if v},
+                              capture={k: cap[k] for k in cap
+                                       if k != "launches"})
+    return res
+
+
+def answer_agreement_ref(row, cap, eos):
+    """A one-shot answer as a request capped at ``cap`` emits it."""
+    r = row.copy()
+    hits = np.flatnonzero(r[:cap] == eos)
+    r[(hits[0] + 1 if len(hits) else cap):] = 0
+    return r
+
+
+def train_other(dev, name):
+    """bf16 training over f32 masters (the model's training-attention sites
+    and copy attentions through their kernels): the first step's loss and
+    gradient against the plain versions (same dropout bits), 10 steps on one
+    batch (the loss must fall; launches counted), one step under
+    no_host_sync. GLKS trains its ds_mle_mce_train losses."""
+    from case_rg_tpu_torch.config import TrainConfig
+    from case_rg_tpu_torch.device import batch_to_device, no_host_sync
+    from case_rg_tpu_torch.kernels import additive_attention as aa
+    from case_rg_tpu_torch.kernels import train_attention as ta
+    from case_rg_tpu_torch.models import create_model, perturb_affine
+    from case_rg_tpu_torch.ops import attention, bilinear
+    from case_rg_tpu_torch.train.trainer import Trainer
+    cfg = other_cfg(name, "float32")
+    model = create_model(name, cfg, device=dev, seed=0)
+    perturb_affine(model, torch.Generator(device=dev).manual_seed(1))
+    init = {k: v.detach().clone() for k, v in model.named_parameters()}
+    tc = TrainConfig(batch_size=B, learning_rate=2.5e-4, warmup_steps=1,
+                     compute_dtype="bfloat16")
+    trainer = Trainer(model, tc, total_steps=1000, device=dev,
+                      loss_method_kwargs={"mode": "ds_mle_mce_train"}
+                      if name == "glks" else None)
+    reqs, _ = make_requests(np.random.RandomState(4), B)
+    batch = other_train_batch(name, cfg, as_model(name, reqs),
+                              np.random.RandomState(5))
+
+    def fresh():
+        with torch.no_grad():
+            for k, p in model.named_parameters():
+                p.copy_(init[k])
+        return trainer.init_state(), torch.Generator(device=dev).manual_seed(7)
+
+    def routed(plain):
+        attention.fused_train_mha = plain_mha if plain else ta.fused_train_mha
+        attention.fused_train_mha_rng = (plain_mha_rng if plain
+                                         else ta.fused_train_mha_rng)
+        bilinear.additive_scores = (_PlainAdditive.apply if plain
+                                    else aa.additive_scores)
+
+    res = {}
+    try:
+        first = {}
+        for route in ("kernels", "plain"):
+            routed(route == "plain")
+            st, gen = fresh()
+            losses, grads = trainer.loss_and_grads(st, batch, gen)
+            flat = torch.cat([g.float().flatten() for g in grads.values()])
+            first[route] = (losses["total"].item(), flat)
+        (lk, gk), (lp, gp) = first["kernels"], first["plain"]
+        cosine = F.cosine_similarity(gk, gp, dim=0).item()
+        check(abs(lk - lp) <= FIRST_LOSS_RTOL * abs(lp),
+              f"{name} train: first loss {lk} vs plain {lp}")
+        check(cosine >= FIRST_GRAD_COSINE,
+              f"{name} train: first gradient cosine {cosine}")
+        res.update(first_loss=lk, first_loss_plain=lp,
+                   first_loss_rel_diff=abs(lk - lp) / abs(lp),
+                   first_grad_cosine=cosine)
+        routed(False)
+        st, gen = fresh()
+        # the batch's loss with dropout off, before and after the steps (the
+        # GRU models' embedding dropout of 0.5 makes the steps' own losses
+        # noisy)
+        before = trainer.eval_batch(st, batch)["total"].item()
+        torch.cuda.synchronize()
+        ta.LAUNCHES_FWD["rng"] = ta.LAUNCHES_BWD["rng"] = 0
+        aa.LAUNCHES = aa.LAUNCHES_BWD = 0
+        losses, times = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            o = trainer.train_step(st, batch, gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(o["total"].item())
+        launches = {"train_attention": (ta.LAUNCHES_FWD["rng"],
+                                        ta.LAUNCHES_BWD["rng"]),
+                    "additive_scores": (aa.LAUNCHES, aa.LAUNCHES_BWD)}
+        after = trainer.eval_batch(st, batch)["total"].item()
+        check(all(np.isfinite(losses)) and after < before,
+              f"{name} train: losses {losses}, without dropout {before} -> "
+              f"{after}")
+        transformer = name in ("masque", "tmemnet")
+        check(all(c > 0 for c in launches["train_attention"]) == transformer
+              and all(c > 0 for c in launches["additive_scores"])
+              == (name != "tmemnet"),
+              f"{name} train: launches {launches}")
+        on_card = batch_to_device(batch, dev)
+        with no_host_sync():
+            o = trainer.train_step(st, on_card, gen)
+        check(bool(torch.isfinite(o["total"])), f"{name} train: the step "
+              "under no_host_sync")
+        res.update(losses=losses, loss_without_dropout=(before, after),
+                   ms_per_step=times[TRAIN_WARMUP:],
+                   launches=launches, sync_check="a step under no_host_sync")
+    finally:
+        routed(False)
+    return res
+
+
+def auto_routing():
+    """Every kernel routing switch back at its default (auto: the kernels
+    in bf16 on the card; in-kernel dropout): an earlier phase's cli/run and
+    cli/serve calls set them for their own modes."""
+    from case_rg_tpu_torch.models import multimem
+    from case_rg_tpu_torch.ops import attention, bilinear
+    for switch in (attention.set_fused_attention,
+                   attention.set_fused_train_attention,
+                   attention.set_single_query_attention,
+                   bilinear.set_additive_kernel, multimem.set_fused_stack):
+        switch(None)
+    attention.set_fused_train_attn_rng(True)
+
+
+def other_models(dev):
+    """Phase 14 over OTHER_MODELS: a record per model, printed as it ends
+    ("other models <name>: {...}")."""
+    auto_routing()
+    out = {}
+    for name in OTHER_MODELS:
+        out[name] = serve_other(dev, name)
+        print(f"other models {name}: " + json.dumps(out[name]), flush=True)
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -3587,6 +4145,13 @@ def main() -> int:
     print("raw files: " + json.dumps({k: raw[k] for k in (
         "corpus", "prepare_s", "preempt", "avg_s", "evaluate_s",
         "phase_s")}), flush=True)
+    t0 = time.perf_counter()
+    others = other_models(dev)
+    print("other models: " + json.dumps({
+        "phase_s": time.perf_counter() - t0,
+        "ms_per_batch": {n: others[n]["ms_per_batch"] for n in others},
+        "dense_sites": {n: others[n]["dense_sites"] for n in others}}),
+        flush=True)
 
     kernels = [
         {"name": "fused_mha", "route": "cuda",

@@ -1,12 +1,16 @@
 """The weight bridge (case_rg_tpu_torch/bridge.py): a CaSE init tree from
 the JAX package maps leaf for leaf onto the port's parameters, and a
-leftover leaf, an unset parameter or a shape mismatch raises."""
+leftover leaf, an unset parameter or a shape mismatch raises.
+``jax_tree_from_port`` (the bridge's inverse, for the tests: a JAX
+parameter tree built from a port model without tracing the JAX model's
+init) gives the JAX init tree's structure and shapes."""
 
 import numpy as np
 import pytest
 
 import jax
 import jax.numpy as jnp
+from torch import nn
 
 from case_rg_tpu.config import ModelConfig as JConfig
 from case_rg_tpu.models import create_model as jcreate
@@ -14,6 +18,7 @@ from case_rg_tpu_torch.bridge import load_jax_params, state_dict_from_jax
 from case_rg_tpu_torch.config import ModelConfig
 from case_rg_tpu_torch.models import create_model
 from case_rg_tpu_torch.models.case import CaSEModel
+from case_rg_tpu_torch.ops.embedding import Embedding
 from tests.test_torch_kernels import one_torch_thread  # noqa: F401
 
 TOY = dict(name="case", vocab_size=64, embedding_size=16, hidden_size=16,
@@ -42,6 +47,36 @@ def jax_case_params(fields=TOY, shapes=(2, 10, 3, 12, 8), abstract=False):
             lambda s: np.broadcast_to(np.zeros((), np.float32), s.shape),
             jax.eval_shape(init))
     return jax.tree_util.tree_map(np.asarray, jax.jit(init)())
+
+
+def jax_tree_from_port(model: nn.Module) -> dict:
+    """The JAX package's parameter tree (numpy, f32) holding ``model``'s
+    parameters: the bridge's rules run backwards, so
+    ``state_dict_from_jax(jax_tree_from_port(m))`` is ``m``'s state."""
+    tree = {}
+    for name, p in model.named_parameters():
+        *path, leaf = name.split(".")
+        mod = model.get_submodule(".".join(path))
+        arr = p.detach().float().cpu().numpy()
+        if leaf == "in_proj_weight":
+            key, arr = "qkv_kernel", arr.T
+        elif leaf == "in_proj_bias":
+            key = "qkv_bias"
+        elif path and path[-1] == "dual_att":
+            path, key, arr = path[:-1], "dual_att_kernel", arr.T
+        elif isinstance(mod, nn.LayerNorm) and leaf == "weight":
+            key = "scale"
+        elif isinstance(mod, Embedding):
+            key = "embedding"
+        elif isinstance(mod, nn.Linear) and leaf == "weight":
+            key, arr = "kernel", arr.T
+        else:
+            key = leaf                  # biases and the GRU's own names
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[key] = np.ascontiguousarray(arr)
+    return tree
 
 
 @pytest.fixture(scope="module")
@@ -87,6 +122,18 @@ def test_case_tree_at_bench_widths():
         {k: tuple(v.shape) for k, v in params.items()}
     n = sum(int(np.prod(v.shape)) for v in sd.values())
     assert round(n / 1e6, 1) == 61.9
+
+
+def test_port_tree_is_the_jax_tree(toy_tree):
+    """``jax_tree_from_port`` of the port's CaSE has the JAX init tree's
+    paths and shapes, and maps back onto the port's parameters."""
+    model = create_model("case", ModelConfig(**TOY), device="cpu")
+    tree = jax_tree_from_port(model)
+    shapes = lambda t: jax.tree_util.tree_map(lambda a: a.shape, t)
+    assert shapes(tree) == shapes(toy_tree)
+    for name, arr in state_dict_from_jax(tree).items():
+        np.testing.assert_array_equal(
+            dict(model.named_parameters())[name].detach().numpy(), arr)
 
 
 def _copy_tree(tree):

@@ -154,7 +154,10 @@ def test_port_imports_nothing_of_jax():
                 "data/prepare.py", "cli/prepare.py", "cli/run.py",
                 "cli/evaluate.py", "runtime/profiling.py", "pipeline.py",
                 "evaluation/harness.py", "evaluation/meteor.py",
-                "evaluation/synonyms.py"):
+                "evaluation/synonyms.py", "ops/gru.py", "ops/highway.py",
+                "models/bbc.py", "models/s2sa.py", "models/gttp.py",
+                "models/glks.py", "models/tmemnet.py", "models/masque.py",
+                "models/predict.py"):
         assert f"case_rg_tpu_torch/{mod}" in scanned, mod
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imports(f) if name in _FORBIDDEN]

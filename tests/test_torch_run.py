@@ -27,8 +27,10 @@ against the JAX package's, in f32 on the CPU.
   each refused flag exits naming its ROADMAP item; ``cli/run`` and
   ``Pipeline`` raise without a card unless asked for the CPU.
 
-One module fixture holds every JAX CLI call (one ``init_state``, one
-``--mode avg``, one ``--mode test``). The ``cuda`` test (skips without a
+One module fixture holds every JAX CLI call (one ``--mode avg``, one
+``--mode test``; the checkpoints' init weights come from the port through
+``tests/test_torch_bridge.jax_tree_from_port``, so no JAX init is traced
+there). The ``cuda`` test (skips without a
 card) trains one epoch through ``cli/run`` on the card and holds ``--mode
 test`` to ``make_predict_fn``; JAX is imported only inside the CPU
 fixtures and tests, so README's ``cuda`` command can run this file where
@@ -404,38 +406,43 @@ def test_jax_optimizer_state_carries_over(tmp_path, accum):
 
 @pytest.fixture(scope="module")
 def jax_run(tmp_path_factory):
-    """The toy corpus prepared; JAX checkpoints of epochs 0 and 1 (one
-    ``init_state``, seeded noise, an optimiser state after 2 updates, best
-    epoch 0); the JAX ``--mode avg`` of both, also copied to epoch 2; and
-    the JAX ``--mode test`` of epochs 0-2 (f32, B=4)."""
+    """The toy corpus prepared; JAX checkpoints of epochs 0 and 1 (init
+    weights drawn by the port and laid out as the JAX tree, seeded noise,
+    an optimiser state after 2 updates, best epoch 0); the JAX ``--mode
+    avg`` of both, also copied to epoch 2; and the JAX ``--mode test`` of
+    epochs 0-2 (f32, B=4)."""
     import jax
 
     from case_rg_tpu.cli.prepare import main as prepare_main
     from case_rg_tpu.cli.run import main as jax_main
     from case_rg_tpu.config import ModelConfig, TrainConfig
-    from case_rg_tpu.data.batching import Batcher
     from case_rg_tpu.data.prepare import load_prepared
-    from case_rg_tpu.models import build_model_cfg, create_model
+    from case_rg_tpu.models import build_model_cfg
     from case_rg_tpu.train.checkpoint import save_best, save_checkpoint
-    from case_rg_tpu.train.trainer import Trainer, make_optimizer
+    from case_rg_tpu.train.trainer import TrainState, make_optimizer
+    from case_rg_tpu_torch.config import ModelConfig as PortConfig
+    from case_rg_tpu_torch.models import create_model as port_create
+    from tests.test_torch_bridge import jax_tree_from_port
 
     root = str(tmp_path_factory.mktemp("run"))
     make_dataset(root, "toy", n_queries=12, n_passages=20)
     prepare_main(["--data_path", root, "--dataset", "toy", "--models",
                   "case", "--answer_len", "10"] + DATA)
     prep = os.path.join(root, "toy", "prepared")
-    arrays, _, vocab, _ = load_prepared(prep, "train", "case")
+    _, _, vocab, _ = load_prepared(prep, "train", "case")
     mcfg = build_model_cfg(ModelConfig(embedding_size=16, hidden_size=16,
                                        num_heads=2, max_target_length=10,
                                        max_dec_len=10), "case", vocab)
     tc = TrainConfig(batch_size=4, learning_rate=1e-3, warmup_steps=1)
-    trainer = Trainer(create_model("case", mcfg), tc, total_steps=20)
-    sample = next(Batcher(arrays, 4, shuffle=False).epoch(0))
-    state = trainer.init_state(jax.random.PRNGKey(0), {
-        k: v for k, v in sample.items() if not k.startswith("_")})
+    # the init weights drawn by the port (the flax initializers' laws), laid
+    # out as the JAX package's tree: no JAX init traced here
+    params = jax_tree_from_port(port_create("case", PortConfig(**{
+        k: getattr(mcfg, k) for k in PortConfig.__dataclass_fields__}),
+        device="cpu"))
     tx = make_optimizer(tc, total_steps=20)
-    params = jax.device_get(state.params)
     opt = tx.init(params)
+    state = TrainState(params=params, opt_state=opt, ema=params,
+                       step=np.int32(0))
     rng = np.random.RandomState(1)
 
     def noisy(scale):
@@ -721,14 +728,70 @@ def test_port_train_resume_test_evaluate(jax_run, tmp_path):
                    if k != "METEOR_variant"), metrics
 
 
+@pytest.mark.parametrize("name, mode, losses", [
+    ("masque", "train", {"select", "gen"}), ("s2sa", "train", {"mle"}),
+    ("tmemnet", "ps_train", {"select"}),
+    ("glks", "train", {"mle", "mce", "ds"})],
+    ids=["masque", "s2sa", "ps_train", "glks"])
+def test_cli_runs_the_other_models(tmp_path, name, mode, losses):
+    """cli/run trains each of the other models one epoch on the toy corpus
+    (prepared for it by the port's cli/prepare) with its losses (GLKS's
+    ds_mle_mce_train, ps_train the ranker alone: the decoder keeps its
+    seeded weights), then --mode test writes its answers (and, for the
+    models with a rank head, rankings) for both splits."""
+    from case_rg_tpu_torch.cli.prepare import main as prepare_main
+    from case_rg_tpu_torch.models import create_model
+    from case_rg_tpu_torch.train.checkpoint import load_checkpoint
+
+    root = str(tmp_path)
+    make_dataset(root, "toy", n_queries=12, n_passages=20)
+    prepare_main(["--data_path", root, "--dataset", "toy", "--models", name,
+                  "--answer_len", "10"] + DATA)
+    out = os.path.join(root, "out")
+    common = ["--model", name, "--data_path", root, "--dataset", "toy",
+              "--output_path", out, "--batch_size", "4", "--device", "cpu",
+              "--epoch", "1"] + SHAPES
+    run_main(common + ["--mode", mode, "--learning_rate", "1e-3",
+                       "--warmup_steps", "1"])
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        rows = [json.loads(x) for x in f]
+    assert {k[4:] for r in rows for k in r if k.startswith("dev_")} == \
+        losses | {"total"}
+    ck = load_checkpoint(out, 0)
+    if mode == "ps_train":
+        init = dict(create_model(name, ck_cfg(ck, name), device="cpu",
+                                 seed=123456).named_parameters())
+        moved = {k for k, v in ck["params"].items()
+                 if not torch.equal(v, init[k].detach())}
+        assert moved and all(not k.startswith(("decoder.", "dec_", "gen."))
+                             for k in moved), sorted(moved)
+    run_main(common + ["--mode", "test"])
+    result = os.path.join(out, "result")
+    for split in ("dev", "test"):
+        with open(os.path.join(result, f"toy_{split}_0.0.answer")) as f:
+            assert len(f.read().splitlines()) > 0
+        assert os.path.exists(os.path.join(
+            result, f"toy_{split}_0.0.run")) == (name != "s2sa" and
+                                                 name != "glks")
+
+
+def ck_cfg(ck, name):
+    """The toy model config of a checkpoint's vocabulary size."""
+    from case_rg_tpu_torch.config import ModelConfig
+    v = ck["params"]["enc_embedding.weight"].shape[0]
+    return ModelConfig(name=name, vocab_size=v, embedding_size=16,
+                       hidden_size=16, num_heads=2, max_target_length=10,
+                       max_dec_len=10)
+
+
 @pytest.mark.parametrize("extra, message", [
-    (["--model", "masque"], "item 5"), (["--model", "s2sa"], "item 6"),
-    (["--mode", "ps_train"], "item 5"), (["--multihost"], "item 7"),
+    (["--model", "glks", "--mode", "ps_train"], "only defined for masque"),
+    (["--multihost"], "item 7"),
     (["--mesh_shape", "2,1"], "item 7"), (["--pool_shard"], "item 7"),
     (["--ckpt_backend", "orbax"], "item 2"), (["--remat", "dots"], "item 2"),
     (["--seeded_dropout"], "item 2"), (["--bf16_scores"], "item 2")],
-    ids=["masque", "s2sa", "ps_train", "multihost", "mesh_shape",
-         "pool_shard", "orbax", "remat", "seeded_dropout", "bf16_scores"])
+    ids=["ps_train_glks", "multihost", "mesh_shape", "pool_shard", "orbax",
+         "remat", "seeded_dropout", "bf16_scores"])
 def test_refused_flags(tmp_path, extra, message):
     argv = ["--model", "case", "--mode", "train", "--output_path",
             str(tmp_path)]

@@ -4,8 +4,10 @@
 
 A module fixture prepares the toy corpus with the JAX package (E=16, H=2,
 query 24, passage 24, 4 passages, answer 10, as tests/test_e2e.py does),
-writes one JAX checkpoint from ``Trainer.init_state`` (no training; biases
-and LayerNorm gains given seeded noise so the answers are not degenerate)
+writes one JAX checkpoint of init weights (drawn by the port and laid out
+as the JAX tree by ``tests/test_torch_bridge.jax_tree_from_port``, so no
+JAX init is traced; no training; biases and LayerNorm gains given seeded
+noise so the answers are not degenerate)
 and runs the JAX CLI once, batched greedy in f32. The port's CLI on the CPU
 must write the same JSONL byte for byte (with ``--epoch`` latest and best,
 and with ``--ema``). Where two rank scores of one request lie within 1e-5
@@ -87,7 +89,7 @@ def served(tmp_path_factory):
     from case_rg_tpu.models import build_model_cfg, create_model
     from case_rg_tpu.serving.featurize import chunk_to_batch
     from case_rg_tpu.train.checkpoint import save_best, save_checkpoint
-    from case_rg_tpu.train.trainer import Trainer
+    from case_rg_tpu.train.trainer import Trainer, TrainState
     from fixtures import make_dataset
 
     root = str(tmp_path_factory.mktemp("serve"))
@@ -107,8 +109,16 @@ def served(tmp_path_factory):
     dcfg = DataConfig(query_len=24, passage_len=24, num_passage=4,
                       answer_len=10)
     reqs = _requests()
-    state = trainer.init_state(jax.random.PRNGKey(0), chunk_to_batch(
-        reqs[:1], "case", vocab, dcfg, 4))
+    # the init weights drawn by the port (the flax initializers' laws), laid
+    # out as the JAX package's tree: no JAX init traced here
+    from case_rg_tpu_torch.config import ModelConfig as PortConfig
+    from case_rg_tpu_torch.models import create_model as port_create
+    from tests.test_torch_bridge import jax_tree_from_port
+    init = jax_tree_from_port(port_create("case", PortConfig(**{
+        k: getattr(mcfg, k) for k in PortConfig.__dataclass_fields__}),
+        device="cpu"))
+    state = TrainState(params=init, opt_state=trainer.tx.init(init),
+                       ema=init, step=np.int32(0))
     rng = np.random.RandomState(1)
 
     def noisy(path, x):
@@ -135,8 +145,6 @@ def served(tmp_path_factory):
     # rank scores of each request (the port's model on the JAX weights,
     # batched as the CLI batches), to find near-ties
     from case_rg_tpu_torch.bridge import load_jax_params
-    from case_rg_tpu_torch.config import ModelConfig as PortConfig
-    from case_rg_tpu_torch.models import create_model as port_create
     from case_rg_tpu_torch.runtime.inference import make_predict_fn
     port = port_create("case", PortConfig(**{
         k: getattr(mcfg, k) for k in PortConfig.__dataclass_fields__}),
@@ -338,11 +346,66 @@ def test_http(served, extra):
     (["--from_export", "artifact"], "item 4"),
     (["--pool_shard", "2"], "item 7"),
     (["--bf16_scores"], "bf16-scores"),
-    (["--model", "masque"], "item 5"),
-], ids=["from_export", "pool_shard", "bf16_scores", "masque"])
+], ids=["from_export", "pool_shard", "bf16_scores"])
 def test_refused_flags(served, extra, message):
     with pytest.raises(SystemExit, match=message):
         _port(served, "refused", *extra)
+
+
+@pytest.mark.parametrize("name", ["masque", "glks", "tmemnet"])
+def test_serves_the_other_models(served, tmp_path, name):
+    """The port's CLI serves the other models from a port checkpoint (random
+    weights with noisy biases): its JSONL equals ``make_predict_fn`` on
+    ``chunk_to_batch`` of the same requests, detokenized as the CLI does,
+    and rankings (masque, tmemnet) order each pool by the rank scores."""
+    from case_rg_tpu_torch.config import DataConfig, ModelConfig
+    from case_rg_tpu_torch.data.vocab import Vocabulary
+    from case_rg_tpu_torch.models import (build_model_cfg, create_model,
+                                          perturb_affine)
+    from case_rg_tpu_torch.runtime.inference import make_predict_fn
+    from case_rg_tpu_torch.runtime.io import ids_to_sentence, remove_duplicate
+    from case_rg_tpu_torch.serving.featurize import chunk_to_batch
+    from case_rg_tpu_torch.train.checkpoint import save_checkpoint
+
+    vocab = Vocabulary.load(os.path.join(served["prep"], "vocab.txt"))
+    cfg = build_model_cfg(ModelConfig(embedding_size=16, hidden_size=16,
+                                      num_heads=2, max_target_length=10,
+                                      max_dec_len=10), name, vocab)
+    model = create_model(name, cfg, device="cpu", seed=3)
+    perturb_affine(model, torch.Generator().manual_seed(4))
+    params = dict(model.named_parameters())
+    out = str(tmp_path / "out")
+    save_checkpoint(out, 0, {"params": params, "ema": params, "step": 0})
+    common = [x if x != served["out"] else out for x in served["common"]]
+    common[common.index("--model") + 1] = name
+    path = str(tmp_path / "got.jsonl")
+    port_main(common + ["--output", path, "--device", "cpu"])
+    with open(path) as f:
+        got = [json.loads(x) for x in f]
+
+    dcfg = DataConfig(query_len=24, passage_len=24, num_passage=4,
+                      answer_len=10)
+    predict = make_predict_fn(model, cfg, 10, device="cpu")
+    detok = vocab.detokenizer()
+    reqs = served["reqs"]
+    assert len(got) == len(reqs)
+    for i in range(0, len(reqs), 4):
+        chunk = reqs[i:i + 4]
+        pred = predict(chunk_to_batch(chunk, name, vocab, dcfg, 4))
+        caps = [min(r.get("max_tokens", 10), 10) for r in chunk]
+        sents = [ids_to_sentence(row[:c], vocab) for row, c in
+                 zip(pred["answer"].numpy(), caps)]
+        remove_duplicate(sents)
+        for j, (resp, req) in enumerate(zip(got[i:i + 4], chunk)):
+            assert resp["id"] == req.get("id", i + j)
+            assert resp["answer"] == detok(sents[j])
+            assert ("ranking" in resp) == (name != "glks")
+            if name != "glks":
+                n_real = min(len(req["passages"]), 4)
+                scores = pred["rank"][j].numpy()[:max(n_real, 1)]
+                assert resp["ranking"] == [int(k) for k in np.argsort(
+                    -scores, kind="stable")[:n_real]]
+    assert any(r["answer"] for r in got)
 
 
 def test_serve_needs_a_card_unless_asked(served, monkeypatch):

@@ -393,3 +393,95 @@ def test_train_step_does_not_sync(cuda):
     with no_host_sync():
         out = trainer.train_step(st, batch, gen)
     assert bool(torch.isfinite(out["total"]))
+
+
+# ---- the other models' kernel routes on the card ----
+
+# (model, hidden width) of the route check (heads of 32): Masque at 256,
+# the width stack_step takes; GLKS at 160 puts its matching attention at
+# 2H = 320, past the additive kernel's 256, so it goes dense
+OTHER_MODELS = (("masque", 256), ("s2sa", 64), ("gttp", 64), ("glks", 160),
+                ("tmemnet", 64))
+
+
+def _other_batch(name, b=4, seed=0):
+    rng = np.random.RandomState(seed)
+    q = rng.randint(4, 500, (b, 12))
+    pool = rng.randint(4, 500, (b, 6, 100))
+    pool[:, :, 80:] = 0
+    resp = rng.randint(4, 500, (b, 6))
+    resp[:, 4:] = 0
+    bt = {"response": resp, "passage_label": rng.randint(0, 6, b)}
+    if name == "masque":
+        bt.update(query=q[:, None], passage=pool)
+    elif name == "tmemnet":
+        bt.update(context=q, passage=pool)
+    else:
+        bt.update(context=q, background=pool.reshape(b, -1))
+    bt = {k: v.astype(np.int32) for k, v in bt.items()}
+    if name == "glks":
+        bt["selection"] = np.eye(150, dtype=np.float32)[rng.randint(0, 150,
+                                                                     b)]
+    return bt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, hidden", OTHER_MODELS,
+                         ids=[m for m, _ in OTHER_MODELS])
+def test_other_models_route_their_kernels_on_the_card(cuda, name, hidden):
+    """bf16 on the card, small widths: greedy (and, for the copy models,
+    the pallas argmax mode) launches the kernels of the model's path, the
+    additive sites the plan refuses go dense and are counted, and a bf16
+    train step launches the training attention (Masque, TMemNet) and
+    additive_scores' backward (the others but TMemNet)."""
+    from case_rg_tpu_torch.config import ModelConfig, TrainConfig
+    from case_rg_tpu_torch.kernels import additive_attention as taa
+    from case_rg_tpu_torch.kernels import copy_argmax as tca
+    from case_rg_tpu_torch.kernels import decode_attention as tda
+    from case_rg_tpu_torch.kernels import train_attention as tta
+    from case_rg_tpu_torch.models import create_model, perturb_affine
+    from case_rg_tpu_torch.ops import bilinear
+    from case_rg_tpu_torch.runtime.inference import make_predict_fn
+    from case_rg_tpu_torch.train.trainer import Trainer
+
+    fields = dict(name=name, vocab_size=500, embedding_size=hidden,
+                  hidden_size=hidden, num_heads=hidden // 32, enc_layers=1,
+                  dec_layers=1, tmemnet_layers=1, max_dec_len=6,
+                  min_window_size=4, num_windows=1, dropout=0.1)
+    cfg = ModelConfig(param_dtype="bfloat16", **fields)
+    model = create_model(name, cfg, device=cuda, seed=0)
+    perturb_affine(model, torch.Generator(device=cuda).manual_seed(1))
+    batch = _other_batch(name)
+    counters = (tea, tds, tda, taa, tca)
+    for m in counters:
+        m.LAUNCHES = 0
+    bilinear.DENSE_SITES.clear()
+    out = make_predict_fn(model, cfg, 6, device=cuda)(batch)
+    torch.cuda.synchronize()
+    assert out["answer"].shape == (4, 6)
+    got = {m.__name__.rsplit(".", 1)[-1]: m.LAUNCHES for m in counters}
+    want = {"masque": {"encoder_attention", "decoder_stack",
+                       "decode_attention", "additive_attention"},
+            "tmemnet": {"encoder_attention", "decode_attention"}}.get(
+                name, {"additive_attention"})
+    assert {k for k, v in got.items() if v} == want, got
+    if name == "glks":
+        assert any(k.startswith("the plan refuses") and k.endswith("H=320")
+                   for k in bilinear.DENSE_SITES), bilinear.DENSE_SITES
+    if name in ("masque", "gttp", "glks"):
+        tca.LAUNCHES = 0
+        make_predict_fn(model, cfg, 6, fast_argmax="pallas",
+                        device=cuda)(batch)
+        assert tca.LAUNCHES == 6
+    trainer = Trainer(create_model(name, ModelConfig(**fields), device=cuda),
+                      TrainConfig(batch_size=4, compute_dtype="bfloat16",
+                                  warmup_steps=1), 10, device=cuda,
+                      loss_method_kwargs={"mode": "ds_mle_mce_train"}
+                      if name == "glks" else None)
+    tta.LAUNCHES_FWD["rng"] = tta.LAUNCHES_BWD["rng"] = 0
+    taa.LAUNCHES_BWD = 0
+    losses = trainer.train_step(trainer.init_state(), batch,
+                                torch.Generator(device=cuda).manual_seed(2))
+    assert torch.isfinite(losses["total"])
+    assert (tta.LAUNCHES_BWD["rng"] > 0) == (name in ("masque", "tmemnet"))
+    assert (taa.LAUNCHES_BWD > 0) == (name != "tmemnet")
