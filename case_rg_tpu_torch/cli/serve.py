@@ -69,10 +69,16 @@ each bucket becomes its own continuous-decode lane.
 ``--model`` is any of the six; "ranking" comes back for the models with a
 rank head (case, masque, tmemnet), and ``--rank_only`` refuses the others.
 
-Not served by the port yet, each refused with a message: ``--from_export``
-(export, ROADMAP Queue 1 item 4), ``--pool_shard`` > 1 (parallelism, item
-7) and ``--bf16_scores`` (the port keeps attention scores in f32 and has no
-switch for bf16 ones).
+``--from_export ARCHIVE`` serves a ``torch.export`` archive written by
+``cli/export_model.py`` instead of a checkpoint: its ``.json`` sidecar
+supplies the model, batch size, beam width, ``rank_only``, answer length
+and data shapes, and it must have been traced for ``--device``'s type.
+Every flag that would change the exported program is refused ("does not
+apply"); the offline and ``--listen`` front ends both serve it.
+
+Not served by the port yet, each refused with a message: ``--pool_shard``
+> 1 (parallelism, ROADMAP Queue 1 item 7) and ``--bf16_scores`` (the port
+keeps attention scores in f32 and has no switch for bf16 ones).
 """
 
 from __future__ import annotations
@@ -80,6 +86,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import itertools
+import json
 import os
 import sys
 import time
@@ -112,8 +119,10 @@ def build_parser():
     p.add_argument("--output_path", type=str, default=None,
                    help="training output dir holding model/ checkpoints")
     p.add_argument("--from_export", type=str, default="",
-                   help="serve an exported artifact (not ported yet: "
-                        "ROADMAP Queue 1 item 4, export)")
+                   help="serve a torch.export archive written by "
+                        "cli/export_model.py (its <path>.json sidecar "
+                        "supplies the model, batch size and data shapes) "
+                        "instead of --model/--output_path")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--epoch", type=str, default=None,
@@ -268,16 +277,57 @@ class _Pending:
 
 
 def _refuse_unported(args) -> None:
-    if args.from_export:
-        raise SystemExit("--from_export: serving an exported artifact is not "
-                         "ported yet (ROADMAP Queue 1 item 4, export); serve "
-                         "a checkpoint with --model and --output_path")
     if args.pool_shard > 1:
         raise SystemExit("--pool_shard > 1: the sharded serving mesh is not "
                          "ported yet (ROADMAP Queue 1 item 7, parallelism)")
     if args.bf16_scores:
         raise SystemExit("--bf16_scores: the port has no bf16-scores switch "
                          "(attention scores stay f32); serve without it")
+
+
+def _from_export_args(args) -> dict:
+    """``--from_export``: refuse every flag that the archive fixes or that
+    does not bear on it, read its sidecar, take the model, batch size,
+    decode and data shapes from it, and check that it was traced for
+    ``--device``. Returns the sidecar."""
+    for bad, name in [
+            (args.continuous, "--continuous"),
+            (args.pool_buckets, "--pool_buckets"),
+            (args.batch_buckets, "--batch_buckets"),
+            (args.pool_shard > 1, "--pool_shard"),
+            (args.decoding != "greedy", "--decoding sample"),
+            (args.request_controls, "--request_controls"),
+            (args.epoch is not None, "--epoch"),
+            (args.ema, "--ema"), (args.bf16, "--bf16"),
+            (args.bf16_scores, "--bf16_scores"),
+            (args.rank_only, "--rank_only"),
+            (args.model is not None, "--model"),
+            (args.output_path is not None, "--output_path")]:
+        if bad:
+            raise SystemExit(f"--from_export serves the artifact as "
+                             f"exported; {name} does not apply (it is "
+                             f"fixed by — or irrelevant to — the "
+                             f"artifact)")
+    from ..runtime.exported import check_platform, read_sidecar
+    try:
+        sidecar = read_sidecar(args.from_export)
+    except (OSError, json.JSONDecodeError) as e:
+        raise SystemExit(f"--from_export: cannot read sidecar "
+                         f"{args.from_export}.json: {e}")
+    try:
+        check_platform(sidecar.get("platforms", []), args.device)
+    except RuntimeError as e:
+        raise SystemExit(f"--from_export: {e}")
+    args.model = sidecar["model"]
+    args.batch_size = int(sidecar["batch_size"])
+    args.max_target_length = int(sidecar["max_target_length"])
+    args.beam_width = int(sidecar.get("beam_width", 1))
+    args.rank_only = bool(sidecar.get("rank_only"))
+    d = sidecar["data"]
+    args.query_len = int(d["query_len"])
+    args.passage_len = int(d["passage_len"])
+    args.num_passage = int(d["num_passage"])
+    return sidecar
 
 
 def _resolve_epoch(args):
@@ -329,9 +379,11 @@ def main(argv=None, _server_ready=None):
     (from the serving thread) once ``--listen`` is bound, so a test can
     send requests and ``shutdown()`` it."""
     args = build_parser().parse_args(argv)
+    sidecar = _from_export_args(args) if args.from_export else None
     _refuse_unported(args)
-    if args.model is None or args.output_path is None:
-        raise SystemExit("--model and --output_path are required")
+    if sidecar is None and (args.model is None or args.output_path is None):
+        raise SystemExit("--model and --output_path are required (unless "
+                         "--from_export)")
     args.batch_size = resolve_batch_size(args.batch_size, args.rank_only)
     dev = resolve_device(args.device)
 
@@ -351,21 +403,33 @@ def main(argv=None, _server_ready=None):
     detok = vocab.detokenizer()
     served = 0
 
-    epoch = _resolve_epoch(args)
-    mcfg, model = load_model(args, vocab, epoch)
-    try:
-        predict_fn = make_predict_fn(model, mcfg, args.max_target_length,
-                                     beam_width=args.beam_width,
-                                     early_exit=args.early_exit,
-                                     fast_argmax=args.fast_argmax,
-                                     decoding=args.decoding,
-                                     sample_seed=args.sample_seed,
-                                     temperature=args.temperature,
-                                     top_k=args.top_k, top_p=args.top_p,
-                                     rank_only=args.rank_only,
-                                     device=args.device)
-    except ValueError as e:   # --rank_only on a model without a rank head
-        raise SystemExit(str(e))
+    if sidecar is not None:
+        # the archive is the whole predict program with the parameters in
+        # it (cli/export_model.py): nothing to build or restore. One fixed
+        # (batch_size x pool) shape.
+        from ..runtime.exported import load_exported
+        try:
+            predict_fn = load_exported(args.from_export,
+                                       sidecar["platforms"]).call
+        except ValueError as e:   # not a torch.export archive
+            raise SystemExit(f"--from_export: {e}")
+        epoch = "export:" + str(sidecar.get("epoch"))
+    else:
+        epoch = _resolve_epoch(args)
+        mcfg, model = load_model(args, vocab, epoch)
+        try:
+            predict_fn = make_predict_fn(model, mcfg, args.max_target_length,
+                                         beam_width=args.beam_width,
+                                         early_exit=args.early_exit,
+                                         fast_argmax=args.fast_argmax,
+                                         decoding=args.decoding,
+                                         sample_seed=args.sample_seed,
+                                         temperature=args.temperature,
+                                         top_k=args.top_k, top_p=args.top_p,
+                                         rank_only=args.rank_only,
+                                         device=args.device)
+        except ValueError as e:   # --rank_only on a model without a rank head
+            raise SystemExit(str(e))
 
     bbuckets = parse_buckets(args.batch_buckets, bs, "--batch_buckets") \
         if args.batch_buckets else [bs]
@@ -551,7 +615,8 @@ def main(argv=None, _server_ready=None):
     if served == 0:
         print("[serve] no requests", file=sys.stderr)
         return
-    precision = "bf16" if args.bf16 else "f32"
+    precision = sidecar["dtype"] if sidecar is not None else \
+        ("bf16" if args.bf16 else "f32")
     if cont is not None:
         print(f"[serve] {served} requests answered continuously "
               f"({stats['chunks']} chunks, {stats['refills']} refills, "

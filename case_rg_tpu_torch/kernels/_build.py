@@ -6,7 +6,10 @@ build happens at first use, from the sources in the checkout, into
 ``build/kernels/<name>-<hash>/`` at the repository root (``.gitignore``
 lists ``build/``); the hash covers the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source or header builds anew.
-``build_all()`` starts one ``nvcc`` per source, all at once.
+``build_all()`` starts one ``nvcc`` per source, all at once. ``load`` builds
+and loads each library once per process, under a lock of its own, so the
+first calls of several threads (several ``cli/serve_multi`` backends)
+wait for one build and share one handle.
 
 Nothing here runs when the module is imported: the CPU tests import every
 module, and this machine may have no ``nvcc``.
@@ -20,6 +23,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 from typing import Dict, Sequence
 
@@ -32,6 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCKS: Dict[str, threading.Lock] = {}
+_LOCKS_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -99,13 +105,20 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+    """The loaded library for ``csrc/<name>.cu``, building it if needed:
+    once per process, whatever the number of threads that ask first."""
     lib = _LIBS.get(name)
-    if lib is None:
-        if not _lib_path(name).exists():
-            build_all([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        _LIBS[name] = lib
+    if lib is not None:
+        return lib
+    with _LOCKS_LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
+        lib = _LIBS.get(name)
+        if lib is None:
+            if not _lib_path(name).exists():
+                build_all([name])
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            _LIBS[name] = lib
     return lib
 
 

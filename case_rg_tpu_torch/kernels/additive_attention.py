@@ -4,13 +4,17 @@
 ``additive_scores(wq, uh, v)`` computes ``s[b, t, l] = sum_h tanh(wq[b, t,
 h] + uh[b, l, h]) * v[h]``, the scorer of every ``ops/bilinear.
 BilinearAttention`` (CaSE's copy attention over both memories, in every
-decode step and in teacher forcing). It is a ``torch.autograd.Function``:
-on CUDA tensors its forward and its backward launch the hand-written
-kernels of ``csrc/additive_attention.cu`` (bf16 only) in the layouts
-``additive_scores_plan`` picks, and count one forward in ``LAUNCHES`` and
-one backward in ``LAUNCHES_BWD``; on CPU tensors they run the plain
-versions, ``additive_scores_plain`` (the JAX package's ``_scores_xla``)
-and ``additive_scores_plain_bwd`` (the math of its custom VJP ``_bwd``).
+decode step and in teacher forcing). Its forward is the custom op
+``case_rg_torch::additive_scores`` (``kernels/library.py``), called
+directly where no gradient is wanted (serving, an exported program) and
+inside a ``torch.autograd.Function`` otherwise, whose backward stays
+outside the op. On CUDA tensors the forward and the backward launch the
+hand-written kernels of ``csrc/additive_attention.cu`` (bf16 only) in the
+layouts ``additive_scores_plan`` picks, and count one forward in
+``LAUNCHES`` and one backward in ``LAUNCHES_BWD``; on CPU tensors they run
+the plain versions, ``additive_scores_plain`` (the JAX package's
+``_scores_xla``) and ``additive_scores_plain_bwd`` (the math of its custom
+VJP ``_bwd``).
 Both keep the kernels' rounding points: wq + uh rounded to the input
 dtype, tanh rounded to the input dtype, each sum in f32 rounded once.
 """
@@ -183,9 +187,7 @@ class _AdditiveScores(torch.autograd.Function):
     @staticmethod
     def forward(ctx, wq, uh, v):
         ctx.save_for_backward(wq, uh, v)
-        if wq.device.type == "cpu":
-            return additive_scores_plain(wq, uh, v)
-        return _launch_fwd(wq, uh, v)
+        return torch.ops.case_rg_torch.additive_scores.default(wq, uh, v)
 
     @staticmethod
     def backward(ctx, g):
@@ -199,7 +201,10 @@ def additive_scores(wq: torch.Tensor, uh: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """wq: [B, T, H]; uh: [B, L, H]; v: [H]. Returns the scores [B, T, L] in
     wq's dtype, differentiable in all three."""
-    return _AdditiveScores.apply(wq, uh, v)
+    if torch.is_grad_enabled() and (wq.requires_grad or uh.requires_grad
+                                    or v.requires_grad):
+        return _AdditiveScores.apply(wq, uh, v)
+    return torch.ops.case_rg_torch.additive_scores.default(wq, uh, v)
 
 
 def _aligned(x):
@@ -229,7 +234,9 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _launch_fwd(wq, uh, v):
+def additive_scores_cuda(wq, uh, v):
+    """The forward op's CUDA implementation: checks (``_aligned`` reads the
+    tensors' addresses, so it runs only here), then one launch."""
     b, t, l, h = _check(wq, uh, v)
     out = torch.empty(b, t, l, dtype=wq.dtype, device=wq.device)
     if out.numel() == 0:

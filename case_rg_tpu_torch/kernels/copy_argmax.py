@@ -7,11 +7,12 @@ mass only at the L_s source ids, so the argmax is either the generator's
 argmax or the best source id once the copy mass of duplicate ids is
 combined: ``comb[b, j] = sum_l cw[b, l] * [ids[b, l] == ids[b, j]]``.
 
-``combine_copy_mass`` is the wrapper: on a CUDA tensor it launches the
-hand-written kernel in ``csrc/copy_argmax.cu`` with the body
-``combine_copy_mass_plan`` picks and counts the launch in ``LAUNCHES``; on
-a CPU tensor it runs ``combine_copy_mass_plain``, the same function in
-PyTorch. The multi-memory decoder's ``pallas`` argmax mode
+``combine_copy_mass`` is the wrapper: it calls the custom op
+``case_rg_torch::combine_copy_mass`` (``kernels/library.py``), whose CUDA
+implementation launches the hand-written kernel in ``csrc/copy_argmax.cu``
+with the body ``combine_copy_mass_plan`` picks and counts the launch in
+``LAUNCHES``; on a CPU tensor the op runs ``combine_copy_mass_plain``, the
+same function in PyTorch. The multi-memory decoder's ``pallas`` argmax mode
 reaches it once per decode step through ``candidate_argmax_from_logits``.
 """
 
@@ -86,8 +87,12 @@ def combine_copy_mass(cw: torch.Tensor, src_ids: torch.Tensor) -> torch.Tensor:
     src_ids: [B, Ls] int32 vocab ids >= 0 (int64 ids are cast). Returns
     [B, Ls] f32: every member of a duplicate-id group carries the whole
     group's mass, so a later argmax picks the group's first position."""
-    if cw.device.type == "cpu":
-        return combine_copy_mass_plain(cw, src_ids)
+    return torch.ops.case_rg_torch.combine_copy_mass.default(cw, src_ids)
+
+
+def combine_copy_mass_cuda(cw: torch.Tensor,
+                           src_ids: torch.Tensor) -> torch.Tensor:
+    """The op's CUDA implementation: checks, then one launch."""
     if cw.ndim != 2 or tuple(src_ids.shape) != tuple(cw.shape):
         raise ValueError(f"combine_copy_mass: cw and src_ids must both be "
                          f"[B, Ls], got {tuple(cw.shape)} and "

@@ -1,11 +1,13 @@
 """Single-query multi-head attention for the decode step (port of
 ``case_rg_tpu/kernels/decode_attention.py``).
 
-``single_query_mha`` is the wrapper: on a CUDA tensor it launches the
-hand-written kernel in ``csrc/decode_attention.cu`` (bf16 only) in the
-layout ``single_query_mha_plan`` picks and counts the launch in
-``LAUNCHES``; on a CPU tensor it runs
-``single_query_mha_plain``, the same function in PyTorch. K and V may be
+``single_query_mha`` is the wrapper: it calls the custom op
+``case_rg_torch::single_query_mha`` (``kernels/library.py``), whose CUDA
+implementation, ``single_query_mha_cuda``, launches the hand-written
+kernel in ``csrc/decode_attention.cu`` (bf16 only) in the layout
+``single_query_mha_plan`` picks and counts the launch in ``LAUNCHES``; on
+a CPU tensor the op runs ``single_query_mha_plain``, the same function in
+PyTorch. K and V may be
 strided views (the two halves of a packed [B, T, 2E] K|V cache): the kernel
 reads them in place. The decode step of every unfused decoder stack
 reaches it through ``ops/attention.MultiHeadAttention.attend_with_kv_merged``
@@ -132,8 +134,14 @@ def single_query_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     merged layout; strided views as ``check_layout`` takes them); keep:
     [B, L] bool (True = attend) or None. Returns the pre-out-projection
     context [B, 1, E] in q's dtype."""
-    if q.device.type == "cpu":
-        return single_query_mha_plain(q, k, v, keep, num_heads)
+    return torch.ops.case_rg_torch.single_query_mha.default(q, k, v, keep,
+                                                            num_heads)
+
+
+def single_query_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          keep, num_heads: int) -> torch.Tensor:
+    """The op's CUDA implementation: checks (``check_layout`` reads the
+    tensors' addresses, so it runs only here), then one launch."""
     for name, x in (("q", q), ("k", k), ("v", v), ("keep", keep)):
         if x is not None and x.device != q.device:
             raise ValueError(f"single_query_mha: {name} is on {x.device}, "

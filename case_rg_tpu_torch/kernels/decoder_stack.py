@@ -7,13 +7,17 @@ into the operands the step reads against the RAW memory (scores = x A_h m^T
 dropped; context through W_v,h W_o,h plus b_v W_o + b_o), so no per-layer
 cross K/V cache is ever built.
 
-``stack_step`` is the wrapper: on a CUDA tensor it launches the
-hand-written kernel in ``csrc/decoder_stack.cu`` (bf16 only; one launch
-runs every layer, a row on a cluster of two blocks or on one, as
-``stack_step_plan`` lays it out) and counts the launch in ``LAUNCHES``; on
-a CPU tensor it runs ``stack_step_plain``, the same function in PyTorch
-with the bf16 roundings at the same points. Both update the KV cache IN
-PLACE (only slot t of each layer is written) and return it.
+``stack_step`` is the wrapper: it calls the custom op
+``case_rg_torch::stack_step`` (``kernels/library.py``; it declares that it
+mutates ``caches``, takes ``t`` as a [B] tensor and the folded operands as
+a list in ``WEIGHT_KEYS`` order), whose CUDA implementation,
+``stack_step_cuda``, launches the hand-written kernel in
+``csrc/decoder_stack.cu`` (bf16 only; one launch runs every layer, a row
+on a cluster of two blocks or on one, as ``stack_step_plan`` lays it out)
+and counts the launch in ``LAUNCHES``; on a CPU tensor the op runs
+``stack_step_plain``, the same function in PyTorch with the bf16
+roundings at the same points. Both update the KV cache IN PLACE (only slot
+t of each layer is written); the wrapper returns it.
 """
 
 from __future__ import annotations
@@ -225,9 +229,19 @@ def stack_step(x: torch.Tensor, t, caches: torch.Tensor, m: torch.Tensor,
     mem_keep/hist_keep: [B, L]/[B, T] bool; folded: output of
     ``fold_stack_weights``. On the card the launch is
     ``stack_step_launch``'s. Returns (x_out [B, E], caches)."""
-    if x.device.type == "cpu":
-        return stack_step_plain(x, t, caches, m, mem_keep, hist_keep, folded,
-                                num_heads)
+    tt = _rows_t(t, x.shape[0], x.device)
+    xout = torch.ops.case_rg_torch.stack_step.default(
+        x, tt, caches, m, mem_keep, hist_keep,
+        [folded[k] for k in WEIGHT_KEYS], num_heads)
+    return xout, caches
+
+
+def stack_step_cuda(x: torch.Tensor, tt: torch.Tensor, caches: torch.Tensor,
+                    m: torch.Tensor, mem_keep: torch.Tensor,
+                    hist_keep: torch.Tensor, folded: Dict[str, torch.Tensor],
+                    num_heads: int) -> torch.Tensor:
+    """The op's CUDA implementation: checks, then one launch that writes
+    ``caches`` in place. ``tt``: the [B] int32 steps. Returns x_out."""
     b, e = x.shape
     _, nl, tmax, e2 = caches.shape
     l = m.shape[1]
@@ -267,7 +281,7 @@ def stack_step(x: torch.Tensor, t, caches: torch.Tensor, m: torch.Tensor,
     if lib.stack_step_smem_bytes(plan["cluster"], tmax, l, h, f) != plan["smem"]:
         raise RuntimeError("stack_step: the C launcher and stack_step_plan "
                            "count shared memory differently")
-    tt = _rows_t(t, b, x.device)
+    tt = _rows_t(tt, b, x.device)
     mem_keep = mem_keep.contiguous()
     hist_keep = hist_keep.contiguous()
     ptrs = (ctypes.c_void_p * len(WEIGHT_KEYS))(
@@ -281,7 +295,7 @@ def stack_step(x: torch.Tensor, t, caches: torch.Tensor, m: torch.Tensor,
     _build.check(rc, "stack_step")
     global LAUNCHES
     LAUNCHES += 1
-    return xout, caches
+    return xout
 
 
 @functools.lru_cache(maxsize=None)

@@ -86,8 +86,13 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: [R, Lq, E]; k/v: [R, Lk, E] (already in-projected); keep: [R, Lk]
     bool (True = attend) or None. Returns the pre-out-projection context
     [R, Lq, E] in q's dtype."""
-    if q.device.type == "cpu":
-        return fused_mha_plain(q, k, v, keep, num_heads)
+    return torch.ops.case_rg_torch.fused_mha.default(q, k, v, keep,
+                                                     num_heads)
+
+
+def fused_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   keep, num_heads: int) -> torch.Tensor:
+    """The op's CUDA implementation: checks, then one launch."""
     r, lq, e = q.shape
     lk = k.shape[1]
     for name, x, shape in (("q", q, (r, lq, e)), ("k", k, (r, lk, e)),

@@ -178,10 +178,19 @@ class MultiMemoryDecoder(nn.Module):
         """Folded fused-stack operands of stack ``i`` ([n_layers, ...],
         derived from the parameters alone, so they never ride in the
         per-row decode state). Cached per dtype; the key holds each
-        parameter's storage and version, so new weights fold again."""
+        parameter's storage and version, so new weights fold again. While
+        ``torch.export`` traces, the parameters are fake tensors without
+        storage: the fold must already be cached (``runtime/exported``
+        runs a live predict first), and the graph holds it as constants."""
+        hit = self._fold_cache.get((i, dtype))
+        if torch.compiler.is_exporting():
+            if hit is None:
+                raise RuntimeError("MultiMemoryDecoder: fold the stack "
+                                   "weights (run a live predict) before "
+                                   "torch.export traces the decoder")
+            return hit[1]
         dec = self.decs[i]
         key = tuple((p.data_ptr(), p._version) for p in dec.parameters())
-        hit = self._fold_cache.get((i, dtype))
         if hit is None or hit[0] != key:
             hit = (key, fold_stack_weights(dec, self.num_layers,
                                            self.num_heads, dtype))

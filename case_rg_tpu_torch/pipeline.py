@@ -24,8 +24,8 @@ Requests use the serving schema (``cli/serve.py`` docstring): ``query``,
 serving code path (``serving/featurize.chunk_to_batch``), so library,
 offline and served results agree. The weights are loaded, cast and moved
 to the card once, in ``from_checkpoint``; the card is the default and
-``device="cpu"`` runs on the CPU. ``from_export`` (the JAX package's
-StableHLO artifacts) is not ported yet (ROADMAP Queue 1 item 4, export).
+``device="cpu"`` runs on the CPU. ``from_export`` serves a
+``torch.export`` archive written by ``cli/export_model.py``.
 """
 
 from __future__ import annotations
@@ -39,9 +39,9 @@ import numpy as np
 class Pipeline:
     """Featurize -> predict -> detokenize for one model.
 
-    Build with :meth:`from_checkpoint`. Calls from several threads must be
-    serialized by the caller (or use ``cli/serve.py``, whose dispatcher owns
-    all device work).
+    Build with :meth:`from_checkpoint` or :meth:`from_export`. Calls from
+    several threads must be serialized by the caller (or use
+    ``cli/serve.py``, whose dispatcher owns all device work).
     """
 
     def __init__(self, *, model_name, vocab, dcfg, run_predict, batch_size,
@@ -140,11 +140,42 @@ class Pipeline:
 
     # ------------------------------------------------------------------
     @classmethod
-    def from_export(cls, artifact: str, *, prepared_dir: str) -> "Pipeline":
-        """Not ported yet: exported artifacts (ROADMAP Queue 1 item 4)."""
-        raise SystemExit("Pipeline.from_export: serving an exported artifact "
-                         "is not ported yet (ROADMAP Queue 1 item 4, "
-                         "export); use Pipeline.from_checkpoint")
+    def from_export(cls, artifact: str, *, prepared_dir: str,
+                    device="cuda") -> "Pipeline":
+        """Serve a ``torch.export`` archive written by
+        ``cli/export_model.py``: the parameters are inside it, so no model
+        code or checkpoint is touched. Model name, batch size, answer length
+        and data shapes come from the ``<artifact>.json`` sidecar
+        (FileNotFoundError without one); an archive traced for another
+        device type than ``device`` is refused (RuntimeError)."""
+        from .config import DataConfig
+        from .data.vocab import Vocabulary
+        from .device import resolve_device
+        from .runtime.continuous.base import HostCopy
+        from .runtime.exported import (check_platform, load_exported,
+                                       read_sidecar)
+
+        sidecar = read_sidecar(artifact)
+        check_platform(sidecar.get("platforms", []), resolve_device(device))
+        vocab = Vocabulary.load(os.path.join(prepared_dir, "vocab.txt"))
+        d = sidecar["data"]
+        dcfg = DataConfig(query_len=int(d["query_len"]),
+                          passage_len=int(d["passage_len"]),
+                          num_passage=int(d["num_passage"]),
+                          answer_len=int(sidecar["max_target_length"]))
+        art = load_exported(artifact, sidecar["platforms"])
+
+        def run_predict(batch):
+            out = art.call(batch)
+            keys = list(out)
+            return dict(zip(keys, HostCopy([out[k] for k in keys]).get()))
+
+        return cls(model_name=sidecar["model"], vocab=vocab, dcfg=dcfg,
+                   run_predict=run_predict,
+                   batch_size=int(sidecar["batch_size"]),
+                   provenance={"source": "export", "model": sidecar["model"],
+                               "epoch": str(sidecar.get("epoch")),
+                               "dtype": sidecar.get("dtype", "float32")})
 
     # ------------------------------------------------------------------
     @property

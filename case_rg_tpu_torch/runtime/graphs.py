@@ -12,21 +12,33 @@ mega of K chunks per lane shape).
   card raises here with the operation's name rather than as a failed
   capture;
 * captures ``body`` with ``torch.cuda.graph`` on a private memory pool of
-  its own, in PyTorch's default ``capture_error_mode="global"``: the thread
-  that captures is the only one that calls CUDA (a ``QueueSource`` reader
-  thread only puts requests on a queue), so the stricter mode costs nothing
-  and would catch a stray call from another thread;
+  its own, in ``capture_error_mode="thread_local"``: other threads may
+  call CUDA while a capture is under way (``cli/serve_multi`` serves
+  several backends in one process, each with its own serving thread, so
+  one backend launches and reads results while another captures); their
+  work goes to the default stream, which the capture's stream (a
+  non-blocking one) does not wait on, and only the capturing thread is
+  barred from unsafe calls;
+* holds the process-wide ``CAPTURE_LOCK`` from the first warm-up to the
+  end of the capture, so two backends never warm up or capture at once
+  (the warm-up's ``no_host_sync`` sets a process-wide mode: while it
+  holds, a thread that blocks on the card raises; serving threads read
+  results through ``HostCopy``'s event, which it does not flag);
 * raises if the capture fails: there is no eager fallback;
 * keeps ``stats``: warm-up and capture seconds, the pool's bytes (the
   growth of device memory reserved across the capture, the cache emptied
   before it), the kernel launches recorded into
   the graph (each wrapper's ``LAUNCHES`` counts a launch when it is
   recorded, not when it is replayed: a run's launches are these times
-  ``replays``) and the replay count.
+  ``replays``) and the replay count. Both the pool's bytes and the
+  launches also take in what other threads allocate and launch during
+  the capture: with several backends, read them from a capture made
+  alone (``--warmup`` captures before a backend takes requests).
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Callable, Dict
 
@@ -35,6 +47,9 @@ import torch
 from ..device import no_host_sync
 from ..kernels import (additive_attention, copy_argmax, decode_attention,
                        decoder_stack, encoder_attention)
+
+
+CAPTURE_LOCK = threading.Lock()
 
 
 def launch_counts() -> Dict[str, int]:
@@ -54,6 +69,10 @@ class CapturedGraph:
     def __init__(self, body: Callable[[], None], warmup: Callable[[], None]):
         if not torch.cuda.is_available():
             raise RuntimeError("CapturedGraph: torch sees no CUDA device")
+        with CAPTURE_LOCK:
+            self._capture(body, warmup)
+
+    def _capture(self, body, warmup) -> None:
         t0 = time.perf_counter()
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -69,7 +88,7 @@ class CapturedGraph:
         t1 = time.perf_counter()
         before, reserved = launch_counts(), torch.cuda.memory_reserved()
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             body()
         after = launch_counts()
         self.stats = {

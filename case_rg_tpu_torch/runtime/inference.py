@@ -46,11 +46,37 @@ def make_predict_fn(model, cfg: ModelConfig, max_len: int, *,
     its "sample_key" [B, 2] if it has one, else drawn from ``sample_seed``
     and the call's index (each call draws afresh, the same sequence on
     every run). Sampling with ``beam_width > 1`` raises. Raises without a
-    card unless ``device="cpu"``."""
+    card unless ``device="cpu"``. Runs under ``torch.inference_mode``;
+    ``make_predict_body`` is the same function without the move and the
+    mode (``runtime/exported`` traces it)."""
     dev = resolve_device(device)
     where = next(model.parameters()).device
     if where.type != dev.type:
         raise ValueError(f"model lives on {where}, not on {dev}")
+    body = make_predict_body(
+        model, cfg, max_len, beam_width=beam_width, early_exit=early_exit,
+        fast_argmax=fast_argmax, decoding=decoding, sample_seed=sample_seed,
+        temperature=temperature, top_k=top_k, top_p=top_p,
+        rank_only=rank_only)
+
+    def fn(batch):
+        batch = batch_to_device(batch, where)
+        with torch.inference_mode():
+            return body(batch)
+    return fn
+
+
+def make_predict_body(model, cfg: ModelConfig, max_len: int, *,
+                      beam_width: int = 1, early_exit: bool = False,
+                      fast_argmax=None, decoding: str = "greedy",
+                      sample_seed: int = 0, temperature: float = 1.0,
+                      top_k: int = 0, top_p: float = 1.0,
+                      rank_only: bool = False
+                      ) -> Callable[[dict], Dict[str, torch.Tensor]]:
+    """``make_predict_fn``'s function on a batch of tensors already on the
+    model's device, under the caller's grad mode. Raises ValueError on a
+    combination the model does not take."""
+    where = next(model.parameters()).device
     name = cfg.name
     if name not in RANK_MODELS + PROTOCOL_MODELS:
         raise ValueError(f"unknown model {name!r}")
@@ -62,11 +88,7 @@ def make_predict_fn(model, cfg: ModelConfig, max_len: int, *,
         if name not in RANK_MODELS:
             raise ValueError(f"model {name!r} has no rank head (rank_only "
                              f"needs one of {RANK_MODELS})")
-
-        def fn(batch):
-            with torch.inference_mode():
-                return {"rank": model.rank(batch_to_device(batch, where))}
-        return fn
+        return lambda batch: {"rank": model.rank(batch)}
 
     if decoding == "sample":
         if beam_width > 1:
@@ -75,50 +97,46 @@ def make_predict_fn(model, cfg: ModelConfig, max_len: int, *,
         validate_controls(temperature, top_k, top_p)
         counter = itertools.count()
 
-        def fn(batch):
-            batch = batch_to_device(batch, where)
+        def sample(batch):
             keys = batch.get("sample_key")
             if keys is None:
                 keys = keys_from_seed(sample_seed, _rows(batch),
                                       stream=next(counter), device=where)
-            with torch.inference_mode():
-                if not protocol:
-                    return model.predict(batch, max_len=max_len,
-                                         sample_keys=keys,
-                                         temperature=temperature,
-                                         top_k=top_k, top_p=top_p)
-                enc = model.encode(batch)
-                out = {"answer": sample_predict(
-                    model, batch, max_len, keys, enc=enc,
-                    temperature=temperature, top_k=top_k, top_p=top_p)}
-                if name in RANK_MODELS:
-                    out["rank"] = enc["ck_attn"]
-                return out
-        return fn
-
-    def fn(batch):
-        batch = batch_to_device(batch, where)
-        with torch.inference_mode():
             if not protocol:
                 return model.predict(batch, max_len=max_len,
-                                     early_exit=early_exit,
-                                     fast_argmax=fast_argmax,
-                                     beam_width=beam_width)
-            if beam_width > 1:
-                out = {"answer": beam_predict(model, batch, max_len,
-                                              beam_width)}
-                if name in RANK_MODELS:
-                    out["rank"] = model.rank(batch)
-                return out
+                                     sample_keys=keys,
+                                     temperature=temperature,
+                                     top_k=top_k, top_p=top_p)
             enc = model.encode(batch)
-            out = {"answer": greedy_predict(model, batch, max_len,
-                                            early_exit=early_exit, enc=enc,
-                                            fast_copy=fast_argmax)}
+            out = {"answer": sample_predict(
+                model, batch, max_len, keys, enc=enc,
+                temperature=temperature, top_k=top_k, top_p=top_p)}
             if name in RANK_MODELS:
-                # one encode: the decode memories and the rank scores
                 out["rank"] = enc["ck_attn"]
             return out
-    return fn
+        return sample
+
+    def greedy(batch):
+        if not protocol:
+            return model.predict(batch, max_len=max_len,
+                                 early_exit=early_exit,
+                                 fast_argmax=fast_argmax,
+                                 beam_width=beam_width)
+        if beam_width > 1:
+            out = {"answer": beam_predict(model, batch, max_len,
+                                          beam_width)}
+            if name in RANK_MODELS:
+                out["rank"] = model.rank(batch)
+            return out
+        enc = model.encode(batch)
+        out = {"answer": greedy_predict(model, batch, max_len,
+                                        early_exit=early_exit, enc=enc,
+                                        fast_copy=fast_argmax)}
+        if name in RANK_MODELS:
+            # one encode: the decode memories and the rank scores
+            out["rank"] = enc["ck_attn"]
+        return out
+    return greedy
 
 
 def _rows(batch) -> int:

@@ -199,7 +199,24 @@ In order it
      versions, 10 steps on one batch (the loss without dropout must fall;
      the training attention's and additive_scores' launches counted), one
      step under no_host_sync. A line per model, then the phase's summary;
- 15. prints one JSON line {"kernels": [...]} and, last, the device line
+ 15. exports and routes ("export and multi-model serving"): (a)
+     cli/export_model of CaSE at the serving widths (--bf16, B=64,
+     --check) from a checkpoint in the port's format (phase 11's text
+     setup), greedy and --rank_only: export, save and load seconds, the
+     archive's MB and the custom ops in its graph; --fast_argmax pallas
+     traced in process (export_predict, not saved); on two B=64 batches of
+     text requests each program against the live fixed-trip predict: outputs equal bit for bit, each
+     kernel's launches a batch equal and as EXPORT_VARIANTS says, ms a
+     batch by the host clock and device busy ms of each; (b) cli/serve
+     --from_export on the 256 text requests equal to cli/serve
+     --no-early_exit from the checkpoint, requests/s of both; (c)
+     cli/serve_multi with a CaSE and a Masque backend (ROUTER_FLAGS: bf16,
+     device loop, pallas, pool buckets, lookahead, passed through after
+     --), 8 clients POSTing the 256 requests, half routed to each: every
+     response equal to that backend's alone through cli/serve, a streamed
+     request, /healthz and /varz; requests/s through the router and of
+     each backend alone;
+ 16. prints one JSON line {"kernels": [...]} and, last, the device line
      {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -4049,6 +4066,286 @@ def other_models(dev):
     return out
 
 
+# ---- phase 15: export and multi-model serving ----
+
+EXPORT_DIR = os.path.join(ROOT, "build", "export_serving")  # .gitignore: build/
+# what a B=64 batch of the exported CaSE launches, as the live predict does:
+# fused_mha 19 times an encode (14 rank-only), stack_step once a step,
+# single_query_mha twice a query-stack layer and step, additive_scores
+# twice a step, combine_copy_mass once a step in the pallas argmax mode
+EXPORT_VARIANTS = {
+    "greedy": ([], None, {"fused_mha": MHA_PER_ENCODE, "stack_step": T_ANS,
+                          "combine_copy_mass": 0,
+                          "single_query_mha": 2 * DEC_LAYERS * T_ANS,
+                          "additive_scores": 2 * T_ANS}),
+    "pallas": (["--fast_argmax", "pallas"], "pallas",
+               {"fused_mha": MHA_PER_ENCODE, "stack_step": T_ANS,
+                "combine_copy_mass": T_ANS,
+                "single_query_mha": 2 * DEC_LAYERS * T_ANS,
+                "additive_scores": 2 * T_ANS}),
+    "rank_only": (["--rank_only"], None,
+                  {"fused_mha": RANK_ONLY_MHA, "stack_step": 0,
+                   "combine_copy_mass": 0, "single_query_mha": 0,
+                   "additive_scores": 0})}
+# the router's backends and the device-loop flags passed through to both
+ROUTER_MODELS = ("case", "masque")
+ROUTER_FLAGS = ["--bf16", "--batch_size", str(B), "--warmup", "--continuous",
+                "--device_loop", "8", "--chunk_steps", "4", "--fast_argmax",
+                "pallas", "--pool_buckets", "5,10", "--lookahead"]
+
+
+def text_checkpoint(name, vocab, out, dev):
+    """``name`` at the serving widths from seed 0 with noisy biases and
+    gains, saved in f32 as the port's checkpoint under ``out``; returns
+    (cfg, model) cast to bf16, as ``--bf16`` casts at load."""
+    from case_rg_tpu_torch.config import ModelConfig
+    from case_rg_tpu_torch.models import (build_model_cfg, create_model,
+                                          perturb_affine)
+    from case_rg_tpu_torch.train.checkpoint import save_checkpoint
+    cfg = build_model_cfg(ModelConfig(embedding_size=E, hidden_size=E,
+                                      num_heads=H, max_target_length=T_ANS,
+                                      max_dec_len=T_ANS), name, vocab)
+    model = create_model(name, cfg, device=dev, seed=0)
+    perturb_affine(model, torch.Generator(device=dev).manual_seed(1))
+    params = dict(model.named_parameters())
+    save_checkpoint(out, 0, {"params": params, "ema": params, "step": 0})
+    del params
+    return (cfg.replace(param_dtype="bfloat16"),
+            model.to(torch.bfloat16).eval())
+
+
+def exported_vs_live(art, live, batches, launches, what):
+    """The loaded archive and the live predict on the same batches: outputs
+    equal bit for bit, each kernel's launches a batch (the counters set to
+    0 before each call) equal to each other and to ``launches``, ms per
+    batch by the host clock (after a warm call), and a profiled batch's
+    device busy ms and idle share."""
+    from case_rg_tpu_torch.runtime.graphs import launch_counts
+    res, outs = {}, {}
+    for name, fn in (("live", live), ("exported", art.call)):
+        fn(batches[0])
+        torch.cuda.synchronize()
+        ms, counts, outs[name] = [], [], []
+        for bt in batches:
+            for mod in graph_counters():
+                mod.LAUNCHES = 0
+            t0 = time.perf_counter()
+            out = fn(bt)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            counts.append(launch_counts())
+            outs[name].append({k: v.cpu() for k, v in out.items()})
+        check(all(c == launches for c in counts),
+              f"export {what}: {name} launches {counts} a batch, "
+              f"expected {launches}")
+        prof = profile_device(fn, batches[:1])
+        res[name] = {"ms_per_batch": ms, "launches_per_batch": counts[0],
+                     **{k: prof[k] for k in ("device_busy_ms_per_batch",
+                                             "device_idle_share")}}
+    for i, (g, w) in enumerate(zip(outs["exported"], outs["live"])):
+        check(sorted(g) == sorted(w) and all(torch.equal(g[k], w[k])
+                                             for k in w),
+              f"export {what}: batch {i} differs from the live predict")
+    return res
+
+
+def serve_router(prep, outs, reqs):
+    """cli/serve_multi with a backend per ROUTER_MODELS, ROUTER_FLAGS passed
+    through, in a thread; TEXT_CLIENTS clients POST the requests TEXT_LINES
+    to a POST (the clients' clock times the window); then one streamed
+    request (the second, routed to the second backend: its answer equal to
+    the one it got among the others), /healthz and /varz. Returns ({id:
+    response}, the streamed lines, /varz, requests/s, startup s)."""
+    import threading
+    import urllib.request
+    from case_rg_tpu_torch.cli.serve_multi import main as multi_main
+    holder, ready = {}, threading.Event()
+
+    def on_ready(server):
+        holder["server"] = server
+        ready.set()
+
+    argv = ["--listen", "127.0.0.1:0", "--prepared_dir", prep]
+    for m in ROUTER_MODELS:
+        argv += ["--backend", f"{m}={outs[m]}"]
+    t0 = time.perf_counter()
+    router = threading.Thread(target=multi_main,
+                              args=(argv + ["--"] + ROUTER_FLAGS,),
+                              kwargs={"_server_ready": on_ready}, daemon=True)
+    router.start()
+    got, errors = {}, []
+    try:
+        check(ready.wait(timeout=600), "router: did not come up")
+        startup_s = time.perf_counter() - t0
+        base = "http://%s:%d" % holder["server"].server_address[:2]
+
+        def post(lines):
+            data = "".join(json.dumps(x) + "\n" for x in lines).encode()
+            rq = urllib.request.Request(base + "/", data=data, method="POST")
+            with urllib.request.urlopen(rq, timeout=300) as r:
+                return [json.loads(x) for x in r.read().decode().splitlines()]
+
+        posts = [reqs[i:i + TEXT_LINES]
+                 for i in range(0, len(reqs), TEXT_LINES)]
+
+        def client(c):
+            try:
+                for lines in posts[c::TEXT_CLIENTS]:
+                    for resp in post(lines):
+                        got[resp["id"]] = resp
+            except Exception as e:        # reported by the main thread
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(TEXT_CLIENTS)]
+        t1 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        window_s = time.perf_counter() - t1
+        check(not errors, f"router: client errors {errors[:3]}")
+        streamed = post([dict(reqs[1], id="stream", stream=True)])
+        check(streamed[-1]["answer"] == got[reqs[1]["id"]]["answer"],
+              "router: the streamed answer")
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            check(r.status == 200, "router: /healthz")
+        with urllib.request.urlopen(base + "/varz", timeout=60) as r:
+            varz = json.loads(r.read().decode())
+    finally:
+        if "server" in holder:
+            holder["server"].shutdown()
+        router.join(timeout=60)
+    check(not router.is_alive(), "router: did not stop")
+    return got, streamed, varz, len(reqs) / window_s, startup_s
+
+
+def export_and_router(dev):
+    """Phase 15 (module docstring): (a) cli/export_model of CaSE at the
+    serving widths, greedy and rank-only, each loaded archive held to the
+    live predict, and the pallas argmax mode's program traced in process; (b) cli/serve --from_export against the checkpoint's
+    fixed-trip serving on the text requests; (c) the router over CaSE and
+    Masque device-loop backends against each backend alone. Returns the
+    phase's record; prints a line per part."""
+    import shutil
+    from case_rg_tpu_torch.cli.export_model import main as export_main
+    from case_rg_tpu_torch.config import DataConfig
+    from case_rg_tpu_torch.data.vocab import Vocabulary
+    from case_rg_tpu_torch.runtime.exported import (ExportedPredict,
+                                                    export_predict, graph_ops)
+    from case_rg_tpu_torch.runtime.inference import make_predict_fn
+    from case_rg_tpu_torch.serving.featurize import chunk_to_batch
+
+    t_phase = time.perf_counter()
+    auto_routing()
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    prep = os.path.join(EXPORT_DIR, "prepared")
+    os.makedirs(prep)
+    words, pieces = text_vocab(os.path.join(prep, "vocab.txt"))
+    vocab = Vocabulary.load(os.path.join(prep, "vocab.txt"))
+    reqs = text_requests(words, pieces, N_TEXT)
+    req_path = os.path.join(EXPORT_DIR, "requests.jsonl")
+    with open(req_path, "w") as f:
+        for r in reqs:
+            f.write(json.dumps(r) + "\n")
+    outs, models = {}, {}
+    for m in ROUTER_MODELS:
+        outs[m] = os.path.join(EXPORT_DIR, m)
+        models[m] = text_checkpoint(m, vocab, outs[m], dev)
+    cfg, model = models.pop("case")
+    del models
+    torch.cuda.empty_cache()
+    dcfg = DataConfig(query_len=LQ, passage_len=LP, num_passage=P,
+                      answer_len=T_ANS)
+    batches = [chunk_to_batch(reqs[i:i + B], "case", vocab, dcfg, B)
+               for i in (0, B)]
+    res = {"setup_s": time.perf_counter() - t_phase}
+
+    # (a) the export CLI, each variant's archive against the live predict
+    common = ["--model", "case", "--prepared_dir", prep, "--output_path",
+              outs["case"], "--bf16", "--batch_size", str(B)]
+    arts = {}
+    for name, (flags, mode, launches) in EXPORT_VARIANTS.items():
+        live = make_predict_fn(model, cfg, T_ANS, early_exit=False,
+                               fast_argmax=mode, rank_only=name == "rank_only",
+                               device=dev)
+        if name == "pallas":
+            # traced in process, not saved: an archive's save and load
+            # take about 30 s at these widths, and greedy's show them
+            t0 = time.perf_counter()
+            program = export_predict(model, cfg, batches[0], T_ANS,
+                                     fast_argmax=mode, device=dev)
+            rec = {"export_s": time.perf_counter() - t0,
+                   "ops": graph_ops(program)}
+            art = ExportedPredict(program, ["cuda"])
+        else:
+            arts[name] = os.path.join(EXPORT_DIR, f"case_{name}.pt2")
+            rep = export_main(common + ["--out", arts[name], "--check"]
+                              + flags)
+            rec = {k: rep[k] for k in ("export_s", "save_s", "load_s",
+                                       "ops")}
+            rec["artifact_mb"] = rep["bytes"] / 1e6
+            art = rep.pop("artifact")
+        check(set(rec["ops"]) == {k for k, n in launches.items() if n},
+              f"export {name}: ops in the graph {rec['ops']}")
+        rec.update(exported_vs_live(art, live, batches, launches, name))
+        del art
+        res[f"a_{name}"] = rec
+        print(f"export and multi-model serving (a) {name}: "
+              + json.dumps(rec), flush=True)
+    del model, live
+    torch.cuda.empty_cache()
+
+    # (b) cli/serve --from_export = cli/serve --no-early_exit from the
+    # checkpoint, on the text requests
+    got_art, run_art = serve_text_mode(
+        ["--prepared_dir", prep, "--from_export", arts["greedy"], "--input",
+         req_path, "--warmup"], [], os.path.join(EXPORT_DIR, "b_art.jsonl"))
+    got_ck, run_ck = serve_text_mode(
+        common + ["--input", req_path, "--warmup"],
+        ["--no-early_exit"], os.path.join(EXPORT_DIR, "b_ck.jsonl"))
+    same_responses(got_art, got_ck, "(b) --from_export vs the checkpoint")
+    res["b_from_export"] = {
+        "from_export": run_art.report(N_TEXT),
+        "checkpoint_no_early_exit": run_ck.report(N_TEXT)}
+    print("export and multi-model serving (b): " + json.dumps(
+        res["b_from_export"]), flush=True)
+
+    # (c) the router: half the requests to each backend, each response equal
+    # to that backend's alone through cli/serve
+    routed = [dict(r, model=ROUTER_MODELS[i % 2]) for i, r in enumerate(reqs)]
+    got, streamed, varz, rps, startup_s = serve_router(prep, outs, routed)
+    rec = {"requests_per_s": rps, "startup_s": startup_s,
+           "varz": {m: {k: varz[m].get(k) for k in (
+               "requests_served", "errors", "continuous")} for m in varz}}
+    check(set(varz) == set(ROUTER_MODELS), f"router: /varz {sorted(varz)}")
+    check(streamed[-1].get("done") is True
+          and all("delta" in x for x in streamed[:-1]),
+          f"router: stream {streamed[-1]}")
+    for m in ROUTER_MODELS:
+        mine = [dict(r) for r in routed if r["model"] == m]
+        for r in mine:
+            del r["model"]
+        path = os.path.join(EXPORT_DIR, f"c_{m}.jsonl")
+        with open(path + ".in", "w") as f:
+            for r in mine:
+                f.write(json.dumps(r) + "\n")
+        alone, run = serve_text_mode(
+            ["--model", m, "--prepared_dir", prep, "--output_path", outs[m],
+             "--input", path + ".in"], ROUTER_FLAGS, path)
+        same_responses([got.get(r["id"]) for r in mine], alone,
+                       f"(c) router vs {m} alone")
+        check(varz[m]["requests_served"] == len(mine) + (m == "masque")
+              and varz[m]["errors"] == 0, f"router: /varz of {m}")
+        rec[f"{m}_alone"] = run.report(len(mine))
+    res["c_router"] = rec
+    print("export and multi-model serving (c): " + json.dumps(rec),
+          flush=True)
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -4151,6 +4448,13 @@ def main() -> int:
         "phase_s": time.perf_counter() - t0,
         "ms_per_batch": {n: others[n]["ms_per_batch"] for n in others},
         "dense_sites": {n: others[n]["dense_sites"] for n in others}}),
+        flush=True)
+    routed = export_and_router(dev)
+    print("export and multi-model serving: " + json.dumps({
+        "phase_s": routed["phase_s"],
+        "export_s": {k[2:]: routed[k]["export_s"] for k in routed
+                     if k.startswith("a_")},
+        "router_requests_per_s": routed["c_router"]["requests_per_s"]}),
         flush=True)
 
     kernels = [

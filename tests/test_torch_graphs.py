@@ -218,3 +218,54 @@ def test_device_loop_round_waits_for_nothing(cuda):
         refill_fn(state, new, np.array([5, 2, B, B]))
     torch.cuda.synchronize()
     assert torch.equal(state["out"][[5, 2]], new["out"][:2])
+
+
+@pytest.mark.cuda
+def test_captures_from_two_threads_while_a_third_launches(cuda):
+    """Several backends in one process: two threads capture a graph each
+    at once (``CAPTURE_LOCK`` takes them one after the other, in
+    "thread_local" mode) while a third launches products on the default
+    stream; every replay gives what the eager body gives, and the third
+    thread's results are right."""
+    import threading
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn(256, 256, device=cuda, generator=gen)
+    results, errors = {}, []
+    stop = threading.Event()
+
+    def capture(i):
+        try:
+            x = torch.randn(64, 256, device=cuda, generator=None) * (i + 1)
+            out = torch.empty(64, 256, device=cuda)
+
+            def body():
+                out.copy_(torch.tanh(x @ a) + i)
+
+            g = graphs.CapturedGraph(body, body)
+            out.zero_()
+            g.replay()
+            torch.cuda.synchronize()
+            results[i] = torch.equal(out, torch.tanh(x @ a) + i)
+        except Exception as e:      # noqa: BLE001  (reported below)
+            errors.append(repr(e))
+
+    def launch():
+        n = 0
+        while not stop.is_set():
+            y = a @ a
+            n += 1
+        torch.cuda.synchronize()
+        results["third"] = (n, torch.allclose(y, a @ a))
+
+    third = threading.Thread(target=launch)
+    third.start()
+    threads = [threading.Thread(target=capture, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    stop.set()
+    third.join(timeout=60)
+    assert not errors, errors
+    assert results[0] and results[1]
+    assert results["third"][0] > 0 and results["third"][1]

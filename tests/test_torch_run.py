@@ -672,8 +672,9 @@ def test_pipeline_equals_cli_serve(jax_run):
     assert pipe(**{k: reqs[3][k] for k in ("query", "passages",
                                            "history")}) == want[3]
     assert pipe.provenance["epoch"] == "1" and pipe.model == "case"
-    with pytest.raises(SystemExit, match="item 4"):
-        Pipeline.from_export("artifact", prepared_dir=jax_run["prep"])
+    with pytest.raises(FileNotFoundError, match="no sidecar artifact.json"):
+        Pipeline.from_export("artifact", prepared_dir=jax_run["prep"],
+                             device="cpu")
 
 
 # ---- the port end to end, refusals, no card ----
