@@ -14,7 +14,7 @@ Usage:
     python -m case_rg_tpu_torch.cli.export_model --model case \\
         --prepared_dir ./dataset/cast/prepared --output_path ./output/case \\
         --out case_b64.pt2 [--epoch best|avg|N] [--batch_size 64] \\
-        [--bf16] [--rank_only] [--check] [--device cpu]
+        [--bf16] [--rank_only] [--early_exit] [--check] [--device cpu]
 
 Writes ``--out`` (``torch.export.save``) plus a ``.json`` sidecar with the
 input spec (key -> shape/dtype), the device it was traced on
@@ -25,8 +25,11 @@ batch. Load and call later with::
     from case_rg_tpu_torch.runtime.exported import load_exported
     fn = load_exported("case_b64.pt2")      # .call(batch_dict)
 
-The decode is the fixed-trip one: ``--early_exit`` (a host read of every
-row's EOS flag each step) cannot be traced and is refused.
+The greedy decode is the fixed-trip one, every step in the graph, unless
+``--early_exit``: then it is a ``while_loop`` that holds the step once and
+stops once every row has emitted EOS, its condition read on the host each
+step when the archive runs (``runtime/exported.export_predict``). The
+sidecar has the JAX CLI's keys, which do not record the choice.
 """
 
 from __future__ import annotations
@@ -59,8 +62,8 @@ def build_parser():
     p.add_argument("--beam_width", type=int, default=1)
     p.add_argument("--early_exit", action=argparse.BooleanOptionalAction,
                    default=False,
-                   help="early-exit greedy decode: not exportable (refused; "
-                        "the artifact runs the fixed-trip decode)")
+                   help="early-exit greedy decode (data-dependent loop "
+                        "trip count; default off for a fixed-cost artifact)")
     from .flags import add_fast_argmax_flag
     add_fast_argmax_flag(p)
     p.add_argument("--rank_only", action="store_true")
@@ -81,15 +84,10 @@ def build_parser():
 
 def main(argv=None) -> dict:
     """Returns what it printed: the sidecar, the artifact's bytes, export
-    and save seconds and the custom ops in the graph by name; with
+    and save seconds and the custom ops in the graph by name, and the
+    graph's node count; with
     ``--check`` also the loaded artifact and its load seconds."""
     args = build_parser().parse_args(argv)
-    if args.early_exit:
-        raise SystemExit("--early_exit: the early-exit decode reads every "
-                         "row's EOS flag on the host each step, which "
-                         "torch.export cannot trace; the artifact runs the "
-                         "fixed-trip decode (ROADMAP Queue 1, export with "
-                         "early exit)")
     from ..config import DataConfig
     from ..data.vocab import Vocabulary
     from ..device import resolve_device
@@ -116,8 +114,8 @@ def main(argv=None) -> dict:
     warm = {"query": "export shape probe",
             "passages": ["export shape probe ."] * dcfg.num_passage}
     batch = chunk_to_batch([warm], args.model, vocab, dcfg, args.batch_size)
-    opts = dict(beam_width=args.beam_width, fast_argmax=args.fast_argmax,
-                rank_only=args.rank_only)
+    opts = dict(beam_width=args.beam_width, early_exit=args.early_exit,
+                fast_argmax=args.fast_argmax, rank_only=args.rank_only)
     t0 = time.perf_counter()
     try:
         program = export_predict(model, mcfg, batch, args.max_target_length,
@@ -148,7 +146,8 @@ def main(argv=None) -> dict:
           f"{sidecar['platforms']}, inputs {sorted(batch)}, traced in "
           f"{t1 - t0:.1f}s, ops {ops}", file=sys.stderr)
     report = {"sidecar": sidecar, "bytes": size, "export_s": t1 - t0,
-              "save_s": t2 - t1, "ops": ops}
+              "save_s": t2 - t1, "ops": ops,
+              "nodes": len(program.graph.nodes)}
 
     if args.check:
         t0 = time.perf_counter()

@@ -30,13 +30,22 @@ the prepared dev and test splits and writes ``result/{dataset}_{split}_
 avg`` writes ``model/avg.pt``, the mean of several epochs' parameters and
 EMA.
 
+The training options, as the JAX CLI has them: ``--seeded_dropout``
+(``ops/dropout.py``: the backward draws each dropout mask again from the
+generator's saved state instead of keeping it), ``--remat
+{dots,dots_batch,nothing}`` (``TrainConfig.remat``: the forward recomputed
+in the backward under ``torch.utils.checkpoint``) and ``--bf16_scores``
+(``ops/attention.set_bf16_scores``: bf16 attention scores for bf16 inputs
+in the dense attention paths; the kernels keep f32 scores). Its default is
+the JAX CLI's auto rule: on exactly for ``--mode train/ps_train
+--bf16_train``. Every switch is set both ways on each ``main()``.
+
 Flags with no effect in the port: ``--fast_rng``/``--no-fast_rng`` (the
 port has one dropout generator, Philox on the card) and the JAX package's
-XLA compile cache. ``--bf16_scores``' default resolves to f32 attention
-scores. Refused, each with the ROADMAP item that holds it:
-``--multihost``, ``--mesh_shape`` and ``--pool_shard`` (item 7),
-``--ckpt_backend orbax``, ``--remat``, ``--seeded_dropout`` and an
-explicit ``--bf16_scores`` (item 2's training options).
+XLA compile cache. Refused, each with the ROADMAP item that holds it:
+``--multihost``, ``--mesh_shape`` and ``--pool_shard`` (item 7) and
+``--ckpt_backend orbax`` (item 2: the card has no orbax, and no slice needs
+its on-disk format).
 """
 
 from __future__ import annotations
@@ -124,7 +133,10 @@ def build_parser():
                         "for --bf16_train")
     p.add_argument("--seeded_dropout", action=argparse.BooleanOptionalAction,
                    default=False,
-                   help="not ported (ROADMAP Queue 1 item 2): refused")
+                   help="training: each dropout mask is drawn again in the "
+                        "backward from the generator's saved state instead "
+                        "of being kept (same losses and gradients, less "
+                        "memory)")
     p.add_argument("--temperature", type=float, default=1.0,
                    help="sampling temperature (--decoding sample)")
     p.add_argument("--top_k", type=int, default=0,
@@ -139,9 +151,10 @@ def build_parser():
                         "serving kernels run; softmax stays f32)")
     p.add_argument("--bf16_scores", action=argparse.BooleanOptionalAction,
                    default=None,
-                   help="not ported (ROADMAP Queue 1 item 2): the default "
-                        "and --no-bf16_scores keep attention scores in f32; "
-                        "--bf16_scores is refused")
+                   help="bf16 attention scores for bf16 inputs in the dense "
+                        "attention paths (the kernels keep f32 scores). "
+                        "Default: on for --mode train/ps_train --bf16_train, "
+                        "off otherwise")
     p.add_argument("--fused_attn", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="the fused_mha CUDA kernel for bf16 encoder "
@@ -212,8 +225,10 @@ def build_parser():
                    help="mixed-precision training (bf16 compute, f32 master)")
     p.add_argument("--remat", type=str, default="",
                    choices=["", "dots", "dots_batch", "nothing"],
-                   help="not ported (ROADMAP Queue 1 item 2): any value "
-                        "but '' is refused")
+                   help="training: recompute the forward in the backward "
+                        "(torch.utils.checkpoint): '' keeps every residual, "
+                        "'dots' keeps matmul outputs, 'dots_batch' also "
+                        "batched ones, 'nothing' recomputes all")
     p.add_argument("--mesh_shape", type=str, default="",
                    help="not ported (ROADMAP Queue 1 item 7): refused")
     p.add_argument("--pool_shard", action="store_true",
@@ -236,14 +251,11 @@ def _refuse_unported(args) -> None:
             raise SystemExit(f"{flag}: multi-device training and testing "
                              "are not ported yet (ROADMAP Queue 1 item 7, "
                              "parallelism)")
-    for flag, on in (("--ckpt_backend orbax", args.ckpt_backend == "orbax"),
-                     (f"--remat {args.remat}", bool(args.remat)),
-                     ("--seeded_dropout", args.seeded_dropout),
-                     ("--bf16_scores", args.bf16_scores is True)):
-        if on:
-            raise SystemExit(f"{flag}: not ported yet (ROADMAP Queue 1 item "
-                             "2, the training options still to port); run "
-                             "without it")
+    if args.ckpt_backend == "orbax":
+        raise SystemExit("--ckpt_backend orbax: not ported (ROADMAP Queue 1 "
+                         "item 2: the port writes its own checkpoints and "
+                         "reads the JAX package's msgpack ones); run "
+                         "without it")
 
 
 def setup(args, need_train: bool = True):
@@ -285,7 +297,7 @@ def train(args):
                      resume=not args.no_resume,
                      checkpoint_every_steps=args.checkpoint_every_steps,
                      compute_dtype="bfloat16" if args.bf16_train
-                     else "float32")
+                     else "float32", remat=args.remat)
     model = create_model(args.model, mcfg, device=args.device, seed=args.seed)
     loss_kwargs = {}
     if args.mode == "ps_train":
@@ -494,6 +506,27 @@ def average(args):
           flush=True)
 
 
+def set_switches(args) -> None:
+    """Set the process-wide routing and training switches from ``args``,
+    both ways (``main()`` is re-entered in-process). ``None`` defaults are
+    the JAX CLI's auto rules: the training attention kernels and bf16
+    scores on exactly for ``--mode train/ps_train --bf16_train``."""
+    from ..models.multimem import set_fused_stack
+    from ..ops import attention
+    from ..ops.dropout import set_seeded_dropout
+    training = args.mode in ("train", "ps_train") and args.bf16_train
+    attention.set_fused_train_attention(
+        training if args.fused_train_attn is None else args.fused_train_attn)
+    attention.set_fused_train_attn_rng(
+        training if args.kernel_rng_dropout is None
+        else args.kernel_rng_dropout)
+    attention.set_bf16_scores(
+        training if args.bf16_scores is None else args.bf16_scores)
+    set_seeded_dropout(args.seeded_dropout)
+    attention.set_fused_attention(None if args.fused_attn else False)
+    set_fused_stack(args.fused_stack)
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
@@ -502,17 +535,7 @@ def main(argv=None):
         args.batch_size = (128 if args.mode == "test" and args.rank_only
                            else 64)
     np.random.seed(args.seed)
-    # routing switches are set both ways: main() is re-entered in-process
-    from ..ops import attention
-    training = args.mode in ("train", "ps_train") and args.bf16_train
-    attention.set_fused_train_attention(
-        training if args.fused_train_attn is None else args.fused_train_attn)
-    attention.set_fused_train_attn_rng(
-        training if args.kernel_rng_dropout is None
-        else args.kernel_rng_dropout)
-    attention.set_fused_attention(None if args.fused_attn else False)
-    from ..models.multimem import set_fused_stack
-    set_fused_stack(args.fused_stack)
+    set_switches(args)
     if args.mode in ("train", "ps_train"):
         train(args)
     elif args.mode == "avg":

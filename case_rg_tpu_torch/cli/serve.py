@@ -76,9 +76,13 @@ and data shapes, and it must have been traced for ``--device``'s type.
 Every flag that would change the exported program is refused ("does not
 apply"); the offline and ``--listen`` front ends both serve it.
 
-Not served by the port yet, each refused with a message: ``--pool_shard``
-> 1 (parallelism, ROADMAP Queue 1 item 7) and ``--bf16_scores`` (the port
-keeps attention scores in f32 and has no switch for bf16 ones).
+``--bf16_scores`` turns on bf16 attention scores for bf16 inputs in the
+dense attention paths (``ops/attention.set_bf16_scores``; the kernels keep
+f32 scores), process-wide, as the JAX CLI does; with ``--from_export`` it
+is refused, since the archive fixes its program.
+
+Not served by the port yet: ``--pool_shard`` > 1 (parallelism, ROADMAP
+Queue 1 item 7), refused with a message.
 """
 
 from __future__ import annotations
@@ -153,8 +157,8 @@ def build_parser():
                    help="bfloat16 parameters (the f32 checkpoint cast once "
                         "at load)")
     p.add_argument("--bf16_scores", action="store_true",
-                   help="not available in the port: attention scores stay "
-                        "f32 (refused with a message)")
+                   help="bf16 attention scores for bf16 inputs in the dense "
+                        "attention paths (the kernels keep f32 scores)")
     p.add_argument("--fused_attn", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="the fused_mha CUDA kernel for bf16 encoder "
@@ -280,9 +284,6 @@ def _refuse_unported(args) -> None:
     if args.pool_shard > 1:
         raise SystemExit("--pool_shard > 1: the sharded serving mesh is not "
                          "ported yet (ROADMAP Queue 1 item 7, parallelism)")
-    if args.bf16_scores:
-        raise SystemExit("--bf16_scores: the port has no bf16-scores switch "
-                         "(attention scores stay f32); serve without it")
 
 
 def _from_export_args(args) -> dict:
@@ -390,6 +391,9 @@ def main(argv=None, _server_ready=None):
     if not args.fused_attn:
         from ..ops.attention import set_fused_attention
         set_fused_attention(False)
+    if args.bf16_scores:
+        from ..ops.attention import set_bf16_scores
+        set_bf16_scores(True)
     from ..models.multimem import set_fused_stack
     set_fused_stack(args.fused_stack)
 

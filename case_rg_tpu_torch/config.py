@@ -70,8 +70,8 @@ class TrainConfig:
     """The training loop's knobs: the port's copy of the fields of
     ``case_rg_tpu.config.TrainConfig`` that one device reads, with the same
     defaults. Left out: the mesh and sharding fields (ROADMAP Queue 1 item
-    7), ``remat`` and ``ckpt_backend`` (the port writes its own checkpoint
-    format only)."""
+    7) and ``ckpt_backend`` (the port writes its own checkpoint format
+    only)."""
 
     batch_size: int = 16
     epochs: int = 20
@@ -82,6 +82,11 @@ class TrainConfig:
     grad_clip: float = 1.0
     ema_decay: float = 0.995
     compute_dtype: str = "float32"   # "bfloat16": f32 masters, bf16 fwd/bwd
+    remat: str = ""                  # recompute the forward in the backward:
+                                     # "" (keep every residual), "dots" (keep
+                                     # matmul outputs), "dots_batch" (and
+                                     # batched ones), "nothing" (recompute
+                                     # all); train/trainer.REMAT_POLICIES
     seed: int = 123456
     log_every: int = 100
     checkpoint_every_steps: int = 0   # 0 = epoch-end only

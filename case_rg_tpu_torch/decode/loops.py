@@ -146,7 +146,11 @@ def _greedy_loop(pick_fn, init_state, batch_size: int, max_len: int,
     chooses each next token; this applies the EOS bookkeeping. With
     ``early_exit`` it stops once every row has ended (later positions stay
     0), reading one flag from the device a step: a host read, so this loop
-    is never captured whole. Returns [B, max_len] int32."""
+    is never captured whole. While ``torch.export`` traces, that loop is
+    ``_greedy_while`` instead. Returns [B, max_len] int32."""
+    if early_exit and torch.compiler.is_exporting():
+        return _greedy_while(pick_fn, init_state, batch_size, max_len, bos,
+                             eos, unk, pad)
     dev = _device_of(init_state)
     state = init_state
     prev = torch.full((batch_size,), bos, dtype=torch.int32, device=dev)
@@ -165,6 +169,40 @@ def _greedy_loop(pick_fn, init_state, batch_size: int, max_len: int,
         out[:, t] = idx
         prev = idx
     return out
+
+
+def _greedy_while(pick_fn, init_state, batch_size: int, max_len: int,
+                  bos: int, eos: int, unk: int, pad: int) -> torch.Tensor:
+    """``_greedy_loop``'s early exit as a ``while_loop`` that
+    ``torch.export`` traces (the JAX package's ``lax.while_loop`` form):
+    while ``t < max_len`` and some row has not ended. The step count ``t``
+    is a 0-dim tensor, so the t == 0 rewrite and the write of the answer's
+    column t are ``where``s. A step may update its state in place (the
+    decoder caches), which a loop body may not do to what it carries: the
+    body hands the step copies of the state's tensors. The state's leaves
+    must be tensors (a position in it a per-row tensor, as the chunked
+    decode has it)."""
+    from torch._higher_order_ops.while_loop import while_loop
+    from torch.utils._pytree import tree_map
+    dev = _device_of(init_state)
+    pos = torch.arange(max_len, device=dev)
+
+    def cond(t, state, prev, ended, out):
+        return (t < max_len) & ~ended.all()
+
+    def body(t, state, prev, ended, out):
+        idx, state = pick_fn(tree_map(torch.clone, state), prev)
+        this_end = idx == eos
+        idx = torch.where((t == 0) & this_end, unk, idx)
+        idx = torch.where((t > 0) & ended, pad, idx)
+        out = torch.where(pos == t, idx[:, None], out)
+        return t + 1, state, idx, ended | this_end, out
+
+    carry = (torch.zeros((), dtype=torch.long, device=dev), init_state,
+             torch.full((batch_size,), bos, dtype=torch.int32, device=dev),
+             torch.zeros(batch_size, dtype=torch.bool, device=dev),
+             torch.zeros(batch_size, max_len, dtype=torch.int32, device=dev))
+    return while_loop(cond, body, carry)[4]
 
 
 def run_greedy(step_fn: StepFn, init_state, batch_size: int, max_len: int,

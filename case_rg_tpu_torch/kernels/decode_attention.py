@@ -64,21 +64,30 @@ def single_query_mha_plan(b: int, l: int, d: int, layout=None) -> dict:
     return {"layout": "block", "threads": 128, "smem": smem}
 
 
-def _scale(d: int, dtype) -> float:
-    """1/sqrt(d) rounded to ``dtype``, as the decode path has it. A Python
-    float: a 0-dim tensor moved to the card would be a blocking copy, a
-    synchronisation of the stream in every decode step."""
+@functools.lru_cache(maxsize=None)
+def _cached_scale(d: int, dtype) -> float:
     return float(torch.tensor(1.0 / np.sqrt(d)).to(dtype))
 
 
+@torch.compiler.assume_constant_result
+def _scale(d: int, dtype) -> float:
+    """1/sqrt(d) rounded to ``dtype``, as the decode path has it. A Python
+    float: a 0-dim tensor moved to the card would be a blocking copy, a
+    synchronisation of the stream in every decode step. A constant to a
+    traced ``while_loop`` body too (``ops/positional._scale``)."""
+    return _cached_scale(d, dtype)
+
+
 def single_query_mha_plain(q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor, keep, num_heads: int
-                           ) -> torch.Tensor:
+                           v: torch.Tensor, keep, num_heads: int,
+                           score_dtype=torch.float32) -> torch.Tensor:
     """The kernel's function in PyTorch (``single_query_mha_xla`` in the
     JAX package, with the rounding points of the decode path it replaces):
     q * scale in q's dtype, f32 scores, masked softmax in f32, a row with no
     valid key gives zeros, probs cast to v's dtype, PV. Takes any number of
-    queries: it is also the dense path of ``attend_with_kv_merged``."""
+    queries: it is also the dense path of ``attend_with_kv_merged``, which
+    passes ``score_dtype`` (bf16 under ``ops.attention.set_bf16_scores``;
+    the kernel's version is f32)."""
     b, lq, e = q.shape
     h = num_heads
     d = e // h
@@ -86,7 +95,8 @@ def single_query_mha_plain(q: torch.Tensor, k: torch.Tensor,
     kh = k.reshape(b, -1, h, d)
     vh = v.reshape(b, -1, h, d)
     scores = torch.einsum("bqhd,bkhd->bhqk",
-                          (qh * _scale(d, q.dtype)).float(), kh.float())
+                          (qh * _scale(d, q.dtype)).to(score_dtype),
+                          kh.to(score_dtype))
     if keep is not None:
         scores = torch.where(keep[:, None, None, :], scores,
                              torch.full((), neg_inf(scores.dtype),

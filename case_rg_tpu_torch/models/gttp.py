@@ -22,9 +22,10 @@ from .bbc import BBCCore, BBCEncoders
 
 
 def mask_pad_logit(logits: torch.Tensor) -> torch.Tensor:
-    """``logits`` with the PAD column (id 0) at -1e20."""
+    """``logits`` with the PAD column (id 0) at -1e20 (a fill with a
+    scalar: a traced ``while_loop`` body may hold no tensor constant)."""
     out = logits.clone()
-    out[:, 0] = neg_inf(logits.dtype)
+    out[:, 0].fill_(neg_inf(logits.dtype))
     return out
 
 

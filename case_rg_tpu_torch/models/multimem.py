@@ -505,8 +505,11 @@ class MultiMemoryDecoder(nn.Module):
         ``early_exit=True`` stops once every row has emitted EOS at least
         once (the later positions stay PAD); it reads a flag from the device
         every step. The reference keeps arg-maxing past EOS but truncates
-        at EOS when it prints, so the emitted answers are the same.
-        ``fast_argmax``: the argmax mode (``_resolve_fast_argmax``)."""
+        at EOS when it prints, so the emitted answers are the same. While
+        ``torch.export`` traces, the early-exit loop is a ``while_loop``
+        instead (``_decode_while``), the same steps; the fixed-trip loop is
+        traced as it runs. ``fast_argmax``: the argmax mode
+        (``_resolve_fast_argmax``)."""
         b = memories[0].shape[0]
         dev = memories[0].device
         fast_argmax, use_kernel_comb = self._resolve_fast_argmax(fast_argmax)
@@ -518,19 +521,55 @@ class MultiMemoryDecoder(nn.Module):
         hist = torch.zeros(b, max_len, dtype=torch.bool, device=dev)
         out = torch.zeros(b, max_len, dtype=torch.int32, device=dev)
         ended = torch.zeros(b, dtype=torch.bool, device=dev)
-        for t in range(max_len):
-            if early_exit and t > 0 and bool(ended.all()):
-                break
+
+        def step(caches, prev, hist, t):
             mix_p, ps, gen_h, gen_logits = self._step_core(
                 caches, prev, hist, t, cross, key_projs, feat, memories,
                 mem_keeps, weights)
-            prev = self._greedy_next(mix_p, ps, gen_h, gen_logits,
-                                     src_ids, ids_cat, extras, fast_argmax,
+            return self._greedy_next(mix_p, ps, gen_h, gen_logits, src_ids,
+                                     ids_cat, extras, fast_argmax,
                                      use_kernel_comb)
+
+        if early_exit and torch.compiler.is_exporting():
+            return self._decode_while(step, caches, prev, hist, out, ended)
+        for t in range(max_len):
+            if early_exit and t > 0 and bool(ended.all()):
+                break
+            prev = step(caches, prev, hist, t)
             out[:, t] = prev
             if early_exit:
                 ended |= prev == self.eos_id
         return out
+
+    def _decode_while(self, step, caches, prev, hist, out, ended):
+        """The early-exit greedy loop as a ``while_loop`` that
+        ``torch.export`` traces (the JAX package's ``lax.while_loop``):
+        while ``t < max_len`` and some row has not emitted EOS, ``step``
+        at t. ``t`` is a 0-dim tensor, given to the step as a [B] tensor
+        of per-row positions (the chunked decode's form, the same values),
+        and the answer's column t is written by ``where``. The step
+        updates the caches and the history in place, and a loop body may
+        not mutate what it carries: it updates copies and carries those,
+        a copy of every cache a step."""
+        from torch._higher_order_ops.while_loop import while_loop
+        b, max_len = out.shape
+        pos = torch.arange(max_len, device=out.device)
+        t0 = torch.zeros((), dtype=torch.long, device=out.device)
+
+        def cond(t, prev, ended, out, hist, caches):
+            return (t < max_len) & ~ended.all()
+
+        def body(t, prev, ended, out, hist, caches):
+            caches = [c.clone() if isinstance(c, torch.Tensor)
+                      else [x.clone() for x in c] for c in caches]
+            hist = hist.clone()
+            nxt = step(caches, prev, hist, t.repeat(b))
+            out = torch.where(pos == t, nxt[:, None], out)
+            return (t + 1, nxt, ended | (nxt == self.eos_id), out, hist,
+                    caches)
+
+        return while_loop(cond, body, (t0, prev, ended, out, hist,
+                                       list(caches)))[3]
 
     # ---- categorical sampling (beyond the reference, which has only greedy
     #      for these decoders) ----

@@ -54,25 +54,42 @@ def fast_copy_on(fast_copy) -> bool:
     return bool(fast_copy)
 
 
+def _per_row_t(dec, b: int):
+    """The decoder state with an int position "t" (TMemNet's) as [B, 1]
+    per-row positions, the form the chunked decode and the traced
+    early-exit loop step with."""
+    if isinstance(dec, dict) and not isinstance(dec.get("t", 0),
+                                                torch.Tensor):
+        dec = dict(dec, t=torch.full((b, 1), int(dec["t"]),
+                                     dtype=torch.long,
+                                     device=_device_of(dec)))
+    return dec
+
+
 def greedy_predict(model, batch: Dict[str, torch.Tensor], max_len: int,
                    early_exit: bool = False, enc=None,
                    fast_copy=None) -> torch.Tensor:
     """Greedy answers [B, max_len] int32 (``enc``: an encode of this batch
     to reuse). ``fast_copy`` (``fast_copy_on``) routes GTTP and GLKS
-    through ``run_greedy_copy``."""
+    through ``run_greedy_copy``. While ``torch.export`` traces an early
+    exit, the decoder state steps with per-row positions
+    (``decode.loops._greedy_while``)."""
     cfg = model.cfg
     if enc is None:
         enc = model.encode(batch)
     b = _batch_size(batch)
+    init = enc["init_state"]
+    if early_exit and torch.compiler.is_exporting():
+        init = _per_row_t(init, b)
     if fast_copy_on(fast_copy) and hasattr(model, "decode_step_fast"):
         fast = model.prepare_fast_decode(enc)
         return run_greedy_copy(
             lambda s, p: model.decode_step_fast(enc, fast, s, p),
-            enc["background"], enc["init_state"], b, max_len, cfg.bos_id,
-            cfg.eos_id, cfg.unk_id, cfg.pad_id, early_exit=early_exit)
-    return run_greedy(lambda s, p: model.decode_step(enc, s, p),
-                      enc["init_state"], b, max_len, cfg.bos_id, cfg.eos_id,
-                      cfg.unk_id, cfg.pad_id, early_exit=early_exit)
+            enc["background"], init, b, max_len, cfg.bos_id, cfg.eos_id,
+            cfg.unk_id, cfg.pad_id, early_exit=early_exit)
+    return run_greedy(lambda s, p: model.decode_step(enc, s, p), init, b,
+                      max_len, cfg.bos_id, cfg.eos_id, cfg.unk_id,
+                      cfg.pad_id, early_exit=early_exit)
 
 
 def beam_predict(model, batch: Dict[str, torch.Tensor], max_len: int,
@@ -129,11 +146,8 @@ def continuous_decode_init(model, batch, *, max_len: int,
     dec = enc.pop("init_state")
     b = _batch_size(batch)
     dev = _device_of(dec)
-    if isinstance(dec, dict) and not isinstance(dec.get("t", 0),
-                                                torch.Tensor):
-        # per-row positions: rows refilled mid-flight sit at their own t
-        dec = dict(dec, t=torch.full((b, 1), int(dec["t"]),
-                                     dtype=torch.long, device=dev))
+    # per-row positions: rows refilled mid-flight sit at their own t
+    dec = _per_row_t(dec, b)
     cap = batch.get("response_cap")
     state = {
         "enc": enc, "dec": dec,

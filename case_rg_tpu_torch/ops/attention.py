@@ -3,10 +3,19 @@
 
 The packed in-projection ``in_proj_weight`` [3E, E] is the JAX package's
 ``qkv_kernel`` [E, 3E] transposed (q | k | v blocks). Scores and softmax run
-in f32 for every input dtype; probabilities are cast to v's dtype before
-the PV product. Rows whose keys are all masked produce zeros. In training
-(a dropout generator is given) the probabilities go through dropout before
-the PV product.
+in f32 by default; ``set_bf16_scores(True)`` (``--bf16_scores``) keeps them
+in bf16 for bf16 inputs in the dense ``attend`` and the plain single-query
+path, where the JAX package's ``_score_dtype`` applies, while f32 inputs
+always get f32 scores. The kernel sites (``fused_mha``,
+``fused_train_mha{,_rng}``, ``stack_step``, ``single_query_mha``) keep f32
+scores under the switch, as the JAX package's Pallas kernels do: their
+gates are decided before any score dtype. ``single_query_mha`` runs where
+the JAX package has no kernel (its XLA single-query path does follow the
+switch), so on the card a bf16 decode step's single-query attention keeps
+f32 scores where the JAX package's would take bf16 ones. Probabilities are
+cast to v's dtype before the PV product. Rows whose keys are all masked
+produce zeros. In training (a dropout generator is given) the
+probabilities go through dropout before the PV product.
 """
 
 from __future__ import annotations
@@ -48,6 +57,24 @@ _FUSED_TRAIN_ATTN_RNG = True
 # None = auto (bf16 on the card), True = always, False = never (the dense
 # ``single_query_mha_plain`` path).
 _SINGLE_QUERY_ATTN = None
+# Attention scores for bf16 inputs: False = f32 (the default), True = bf16
+# (``_score_dtype``).
+_BF16_SCORES = False
+
+
+def set_bf16_scores(on: bool) -> None:
+    """bf16 attention scores for bf16 inputs in the dense paths
+    (process-wide; the CLIs set it at startup)."""
+    global _BF16_SCORES
+    _BF16_SCORES = bool(on)
+
+
+def _score_dtype(in_dtype) -> torch.dtype:
+    """The JAX package's rule: f32 inputs always get f32 scores; other
+    inputs keep their dtype only when the switch is on."""
+    if in_dtype == torch.float32 or not _BF16_SCORES:
+        return torch.float32
+    return in_dtype
 
 
 def set_fused_attention(on) -> None:
@@ -133,11 +160,13 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Scaled dot-product attention on [B, H, L, d] tensors. ``attn_bias``:
     additive [Lq, Lk]; ``key_keep``: bool [B, Lk], True = attend; with a
-    generator ``gen``, dropout at ``dropout_rate`` on the probabilities."""
+    generator ``gen``, dropout at ``dropout_rate`` on the probabilities.
+    Scores, softmax and probabilities in ``_score_dtype(q.dtype)``."""
     scale = _attend_scale(q.shape[-1], q.dtype)
-    scores = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
+    sd = _score_dtype(q.dtype)
+    scores = torch.matmul((q * scale).to(sd), k.to(sd).transpose(-1, -2))
     if attn_bias is not None:
-        scores = scores + attn_bias.float()[None, None]
+        scores = scores + attn_bias.to(sd)[None, None]
     if key_keep is not None:
         scores = _mask_scores(scores, key_keep)
     probs = torch.softmax(scores, dim=-1)
@@ -193,7 +222,8 @@ class MultiHeadAttention(nn.Module):
         if _single_query_ok(q):
             ctx = single_query_mha(q, k, v, key_keep, self.num_heads)
         else:
-            ctx = single_query_mha_plain(q, k, v, key_keep, self.num_heads)
+            ctx = single_query_mha_plain(q, k, v, key_keep, self.num_heads,
+                                         _score_dtype(q.dtype))
         return self.out(ctx), None
 
     def attend_with_kv(self, q_in: torch.Tensor, k: torch.Tensor,

@@ -27,11 +27,19 @@ def sinusoid_table(max_len: int, dim: int, dtype=np.float32) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
+def _cached_scale(dim: int, dtype) -> float:
+    return float(torch.tensor(np.sqrt(dim), dtype=dtype))
+
+
+@torch.compiler.assume_constant_result
 def _scale(dim: int, dtype) -> float:
     """sqrt(dim) rounded to ``dtype``, once per (dim, dtype). A Python
     float: a 0-dim tensor built on the card per call would be a blocking
-    host-to-device copy, a synchronisation of the stream every step."""
-    return float(torch.tensor(np.sqrt(dim), dtype=dtype))
+    host-to-device copy, a synchronisation of the stream every step. A
+    constant to a traced ``while_loop`` body too (dynamo would otherwise
+    trace the numpy and leave a tensor constant in it, which
+    ``torch.export.save`` refuses)."""
+    return _cached_scale(dim, dtype)
 
 
 class PositionalEmbedding(nn.Module):

@@ -16,8 +16,12 @@ program was traced on.
 
 The graph holds the serving kernels as the custom ops of
 ``kernels/library.py``, so the program launches them when it runs on the
-card. The graph is not decomposed (``run_decompositions`` is not called):
-it runs the operations the eager predict runs, in its order.
+card. An early-exit program (``export_predict(early_exit=True)``) holds
+its decode step once, in the body of a ``while_loop``; the loaded program
+runs that loop eagerly, reading its condition on the host each step, and
+``runtime/graphs`` never captures it. The graph is not decomposed
+(``run_decompositions`` is not called): it runs the operations the eager
+predict runs, in its order.
 """
 
 from __future__ import annotations
@@ -49,11 +53,19 @@ class PredictProgram(torch.nn.Module):
 
 
 def export_predict(model, cfg, batch: dict, max_len: int, *,
-                   beam_width: int = 1, fast_argmax=None,
-                   rank_only: bool = False, device="cuda"
+                   beam_width: int = 1, early_exit: bool = False,
+                   fast_argmax=None, rank_only: bool = False, device="cuda"
                    ) -> torch.export.ExportedProgram:
-    """Trace ``model``'s fixed-trip predict program (greedy or beam; no
-    early exit) at ``batch``'s shapes into an ``ExportedProgram``.
+    """Trace ``model``'s predict program (greedy or beam) at ``batch``'s
+    shapes into an ``ExportedProgram``.
+
+    The greedy decode is the fixed-trip loop, each of its ``max_len``
+    steps in the graph; with ``early_exit`` it is a ``while_loop`` whose
+    body holds the step once and whose condition (some row has not
+    emitted EOS) the loaded program reads on the host each step, as the
+    live early-exit loop does (``models/multimem._decode_while``,
+    ``decode/loops._greedy_while``). Beam search ignores ``early_exit``, as
+    the JAX exporter's does.
 
     A live predict on ``batch`` runs first, so every first-use cache (the
     kernels' builds, the decoder's folded stack weights, the scale
@@ -63,7 +75,7 @@ def export_predict(model, cfg, batch: dict, max_len: int, *,
     count once more here: ``ops.bilinear.DENSE_SITES`` rises by the
     program's dense additive sites; the kernels' ``LAUNCHES`` count the
     live predict only. Raises ValueError where ``make_predict_fn`` would."""
-    opts = dict(beam_width=beam_width, early_exit=False,
+    opts = dict(beam_width=beam_width, early_exit=early_exit,
                 fast_argmax=fast_argmax, rank_only=rank_only)
     make_predict_fn(model, cfg, max_len, device=device, **opts)(batch)
     where = next(model.parameters()).device
@@ -74,8 +86,9 @@ def export_predict(model, cfg, batch: dict, max_len: int, *,
         return torch.export.export(program, (tb,), strict=False)
 
 
-def graph_ops(program: torch.export.ExportedProgram) -> Dict[str, int]:
-    """The custom-op calls in the program's graph, by op name."""
+def graph_ops(program) -> Dict[str, int]:
+    """The custom-op calls in the graph of ``program`` (an ExportedProgram,
+    or a graph module such as a ``while_loop`` body), by op name."""
     ops: Dict[str, int] = {}
     for node in program.graph.nodes:
         name = getattr(node.target, "name", None)

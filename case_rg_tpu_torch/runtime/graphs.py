@@ -7,10 +7,12 @@ mega of K chunks per lane shape).
 * warms up on a side stream first, twice: once for the work a first call
   does (nvcc builds, ``allow_smem``'s first ``cudaFuncSetAttribute``,
   ``stack_step_plan``'s ``cudaOccupancyMaxActiveClusters``,
-  ``MultiMemoryDecoder._folded``'s fold), then once under
-  ``device.no_host_sync``, so a body that would make the host wait on the
-  card raises here with the operation's name rather than as a failed
-  capture;
+  ``MultiMemoryDecoder._folded``'s fold), then again. Neither runs under
+  ``device.no_host_sync``: that mode is process-wide, and another thread
+  that blocks on the card while it holds would raise. The capture in
+  "thread_local" mode refuses a body that synchronises, as a failed
+  capture; the tests and chip_smoke.py run whole rounds under
+  ``no_host_sync`` to name the operation;
 * captures ``body`` with ``torch.cuda.graph`` on a private memory pool of
   its own, in ``capture_error_mode="thread_local"``: other threads may
   call CUDA while a capture is under way (``cli/serve_multi`` serves
@@ -20,10 +22,7 @@ mega of K chunks per lane shape).
   non-blocking one) does not wait on, and only the capturing thread is
   barred from unsafe calls;
 * holds the process-wide ``CAPTURE_LOCK`` from the first warm-up to the
-  end of the capture, so two backends never warm up or capture at once
-  (the warm-up's ``no_host_sync`` sets a process-wide mode: while it
-  holds, a thread that blocks on the card raises; serving threads read
-  results through ``HostCopy``'s event, which it does not flag);
+  end of the capture, so two backends never warm up or capture at once;
 * raises if the capture fails: there is no eager fallback;
 * keeps ``stats``: warm-up and capture seconds, the pool's bytes (the
   growth of device memory reserved across the capture, the cache emptied
@@ -44,7 +43,6 @@ from typing import Callable, Dict
 
 import torch
 
-from ..device import no_host_sync
 from ..kernels import (additive_attention, copy_argmax, decode_attention,
                        decoder_stack, encoder_attention)
 
@@ -78,8 +76,7 @@ class CapturedGraph:
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             warmup()
-            with no_host_sync():
-                warmup()
+            warmup()
         torch.cuda.current_stream().wait_stream(side)
         torch.cuda.synchronize()
         # the warm-up's cached blocks go now (the capture's entry would free

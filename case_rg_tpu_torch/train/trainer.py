@@ -21,11 +21,25 @@ the differentiated function (``train/precision.py``) and the whole forward
 and backward run in bf16; losses are cast to f32 before the sum. The dev
 evaluation runs in f32, as the JAX package's does.
 
+``TrainConfig.remat`` recomputes the forward in the backward, as the JAX
+package's ``jax.checkpoint`` of the whole differentiated function (the
+bf16 cast and the model's losses) does: the step runs that function under
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)`` with the policy
+of ``REMAT_POLICIES``. Losses are the same bit for bit and gradients are
+those of the same function; only what waits in memory for the backward
+changes. The hand-written kernels' autograd Functions (the training
+attention, the additive scores) are not aten products, so every policy
+runs their forward again, as JAX's policies do with a ``pallas_call``.
+
 The state's tensors are updated in place (the masters are the model's own
 parameters), which saves a copy of every state tensor per step.
 
 Dropout: every mask of a step is drawn in order from one ``torch.Generator``
-on the device (``ops/dropout.py``, the training-attention seeds). ``fit``
+on the device (``ops/dropout.py``, the training-attention seeds). Under
+remat the forward runs twice, so both runs draw from a generator rewound
+to the step's starting state (``_rewinder``), and the step's generator is
+then left where one forward leaves it: the recompute sees the forward's
+masks and seeds, and the next step draws what it draws without remat. ``fit``
 makes each epoch's generator from ``(seed, epoch)`` (``epoch_generator``),
 so a run resumed at epoch e draws what an unbroken run draws there, and a
 resume is bit-exact. The JAX loop instead splits one key chain from
@@ -59,6 +73,22 @@ from .precision import cast_params
 from .schedule import cosine_hard_restarts_with_warmup
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
+
+# TrainConfig.remat -> the aten products whose outputs the backward keeps
+# (torch.utils.checkpoint's selective policy); everything else in the
+# differentiated function is recomputed. On the port's shapes F.linear
+# reaches aten.addmm (aten.mm without a bias or on a non-contiguous input)
+# and torch.matmul / einsum of stacked operands aten.bmm (checked on the
+# CPU with a dispatch mode). "dots" keeps the unbatched products, as
+# jax.checkpoint_policies.dots_with_no_batch_dims_saveable; "dots_batch"
+# the batched ones too (dots_saveable); "nothing" keeps none
+# (nothing_saveable).
+REMAT_POLICIES = {
+    "": None,
+    "dots": ("mm", "addmm"),
+    "dots_batch": ("mm", "addmm", "bmm", "baddbmm"),
+    "nothing": (),
+}
 
 
 @dataclass
@@ -111,6 +141,36 @@ class PreemptionGuard:
         return False
 
 
+def _remat_context(saved: tuple):
+    """``checkpoint``'s ``context_fn`` that keeps the outputs of the aten
+    ops named in ``saved`` and recomputes the rest; None for none kept."""
+    if not saved:
+        return None
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    keep = {getattr(torch.ops.aten, n).default for n in saved}
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in keep
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return lambda: create_selective_checkpoint_contexts(policy)
+
+
+def _rewinder(gen: Optional[torch.Generator]):
+    """(rewind, work): ``rewind()`` sets the generator ``work`` to ``gen``'s
+    state at this call and returns it, so each run of a checkpointed
+    forward draws the same masks and seeds from ``work``."""
+    if gen is None:
+        return (lambda: None), None
+    snap = gen.get_state()
+    work = torch.Generator(device=gen.device)
+
+    def rewind():
+        work.set_state(snap)
+        return work
+    return rewind, work
+
+
 class _Losses(nn.Module):
     """``model.train_losses`` as a module's forward, for functional_call."""
 
@@ -146,6 +206,9 @@ class Trainer:
             train_cfg.num_cycles)
         self._losses = _Losses(model, dict(loss_method_kwargs or {}))
         self._bf16 = train_cfg.compute_dtype == "bfloat16"
+        if train_cfg.remat not in REMAT_POLICIES:
+            raise ValueError(f"remat {train_cfg.remat!r} not in "
+                             f"{tuple(REMAT_POLICIES)}")
 
     def init_state(self) -> TrainState:
         """A fresh state over the model's current parameters: zero moments,
@@ -196,12 +259,30 @@ class Trainer:
             (batch, gen))
         return {k: v.float() for k, v in losses.items()}
 
+    def _run_remat(self, params, batch, gen):
+        """``_run`` under ``checkpoint`` with the ``TrainConfig.remat``
+        policy, both runs of the forward drawing from ``gen`` rewound to its
+        state here; ``gen`` is left where the forward left it."""
+        from torch.utils.checkpoint import checkpoint
+        rewind, work = _rewinder(gen)
+        ctx = _remat_context(REMAT_POLICIES[self.tc.remat])
+        kw = {} if ctx is None else {"context_fn": ctx}
+        losses = checkpoint(
+            lambda: self._run(params, batch, rewind(), self._bf16),
+            use_reentrant=False, **kw)
+        if work is not gen:
+            gen.set_state(work.get_state())
+        return losses
+
     def loss_and_grads(self, state: TrainState, batch,
                        gen: Optional[torch.Generator]):
         """(losses with "total", gradients of the total by parameter name)
         at the state's parameters; nothing is updated."""
         batch = batch_to_device(_device_fields(batch), self.device)
-        losses = self._run(state.params, batch, gen, self._bf16)
+        if self.tc.remat:
+            losses = self._run_remat(state.params, batch, gen)
+        else:
+            losses = self._run(state.params, batch, gen, self._bf16)
         total = sum(losses.values())
         grads = torch.autograd.grad(total, list(state.params.values()),
                                     allow_unused=True, materialize_grads=True)

@@ -108,8 +108,9 @@ In order it
      from seed 0 with noisy biases and gains, and 256 text requests from
      seed 3 (a history of 0-2 turns; 5 passages for a third of them, 10 for
      the rest, sentences joined by ". "; ``max_tokens`` over 8-40). Four
-     modes, each run twice (the second under torch.profiler, its answers
-     equal to the first's), all with --bf16, B=64 and --warmup: (a)
+     modes, all with --bf16, B=64 and --warmup (the device loop run twice,
+     the second under torch.profiler, its answers equal to the first's):
+     (a)
      batched greedy, equal to ``make_predict_fn`` on ``chunk_to_batch`` of
      the same requests; (b) --continuous --fast_argmax pallas
      --pool_buckets 5,10, equal to ``run_continuous_multi`` driven directly
@@ -190,13 +191,13 @@ In order it
      batch; (b) a rank-only batch (masque, tmemnet); (c) beam width 4 and
      sampling at top_k=1 (gated against greedy); (f) masque, gttp and glks
      in the pallas argmax mode (combine_copy_mass launches a step; gated
-     against its plain version and against dense); (d) 256 requests through
+     against its plain version and against dense); (d) 128 requests through
      the chunk loop (batch 64, refill 16, chunks of 8; equal to the
      one-shot greedy answers token for token) and the device loop (4 steps a chunk, 8 chunks a mega,
      a ring of 256, lookahead; equal to the chunk loop token for token,
      launches reckoned from the capture); (e) bf16 training over f32
      masters: the first step's loss and gradient against the plain
-     versions, 10 steps on one batch (the loss without dropout must fall;
+     versions, 6 steps on one batch (the loss without dropout must fall;
      the training attention's and additive_scores' launches counted), one
      step under no_host_sync. A line per model, then the phase's summary;
  15. exports and routes ("export and multi-model serving"): (a)
@@ -205,9 +206,10 @@ In order it
      setup), greedy and --rank_only: export, save and load seconds, the
      archive's MB and the custom ops in its graph; --fast_argmax pallas
      traced in process (export_predict, not saved); on two B=64 batches of
-     text requests each program against the live fixed-trip predict: outputs equal bit for bit, each
-     kernel's launches a batch equal and as EXPORT_VARIANTS says, ms a
-     batch by the host clock and device busy ms of each; (b) cli/serve
+     text requests each program against the live fixed-trip predict:
+     outputs equal bit for bit, each kernel's launches a batch equal and
+     as EXPORT_VARIANTS says, ms a batch by the host clock and device busy
+     ms of each; (b) cli/serve
      --from_export on the 256 text requests equal to cli/serve
      --no-early_exit from the checkpoint, requests/s of both; (c)
      cli/serve_multi with a CaSE and a Masque backend (ROUTER_FLAGS: bf16,
@@ -216,7 +218,32 @@ In order it
      response equal to that backend's alone through cli/serve, a streamed
      request, /healthz and /varz; requests/s through the router and of
      each backend alone;
- 16. prints one JSON line {"kernels": [...]} and, last, the device line
+ 16. training options and early-exit export: (a) CaSE at the serving
+     widths (B=64, dropout 0.1, bf16 over f32 masters, the in-kernel-RNG
+     training attention) takes a step from the same parameters and
+     generator seed under each of TRAIN_OPTIONS (the default,
+     --seeded_dropout, --remat dots, dots_batch, nothing): the loss equal
+     to the default's bit for bit, gradient cosine >= FIRST_GRAD_COSINE
+     and the largest difference, the training kernels' launches (remat
+     runs each forward twice), ms a step by the host clock, device busy
+     ms, and peak allocated memory over the timed steps; then the
+     default's step with bf16 attention scores (the DENSE_ATTEND dense
+     attend calls of the step take bf16 scores; loss finite and within
+     BF16_SCORES_LOSS_RTOL of the default's f32-score loss; gradients
+     different from the default's at cosine >= BF16_SCORES_GRAD_COSINE;
+     ms, peak memory) and a --remat dots step under no_host_sync; (b), run
+     inside
+     phase 15 on its CaSE and its two B=64 batches of text requests: the
+     early-exit decode (a while_loop) exported in process with
+     --fast_argmax pallas against the live early-exit predict (outputs
+     equal bit for bit, launches a batch equal, per step run), export s,
+     graph nodes, the steps run, ms a batch and device busy ms beside the
+     fixed-trip pallas program of 15 (a); then, with the EOS logit pushed
+     (EOS_PUSHES) until every row of a batch ends before T_ANS, both
+     programs again on that batch against their live predicts (the
+     early-exit one's steps run below T_ANS, gated), and the loop body's
+     copies of the carried caches (bytes and µs a step);
+ 17. prints one JSON line {"kernels": [...]} and, last, the device line
      {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -1136,7 +1163,9 @@ def device_ms(fn, iters: int = 50) -> float:
 def profile_device(run, batches):
     """Device time of ``run`` over ``batches`` under torch.profiler: wall ms
     per batch, device busy ms and idle share, and the kernels that take the
-    most."""
+    most. Only the device's activity is recorded: the host's operator
+    events, which no reading uses, cost seconds a call to gather
+    (tools/probe_profile_cost.py)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1146,8 +1175,7 @@ def profile_device(run, batches):
                 return float(getattr(evt, name))
         return 0.0
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for bt in batches:
             run(bt)
@@ -2524,11 +2552,15 @@ def serve_text(dev):
     for name, extra in modes.items():
         path = os.path.join(TEXT_DIR, f"{name}.jsonl")
         got[name], run = serve_text_mode(common, extra, path)
-        again, prof = serve_text_mode(common, extra, path, profiled=True)
-        same_responses(again, got[name], f"{name}: a second run")
-        runs[name] = dict(run.report(n), profiled=prof.report(n),
+        runs[name] = dict(run.report(n),
                           chunk_to_batch_ms=res["chunk_to_batch_ms"],
                           native_tokenizer=res["native_tokenizer"])
+        if name == "c_device_loop":
+            # a second, profiled run of the device loop only (the batched
+            # and chunk-loop modes' were cut to make room for phase 16)
+            again, prof = serve_text_mode(common, extra, path, profiled=True)
+            same_responses(again, got[name], f"{name}: a second run")
+            runs[name]["profiled"] = prof.report(n)
         print(f"text serving {name}: " + json.dumps(runs[name]), flush=True)
 
     # (a) = make_predict_fn on chunk_to_batch of the same requests
@@ -3539,7 +3571,10 @@ def raw_files(dev, bare_ms):
 OTHER_MODELS = ("masque", "s2sa", "gttp", "glks", "tmemnet")
 RANK_MODELS = ("masque", "tmemnet")
 COPY_MODELS = ("masque", "gttp", "glks")      # fast_argmax="pallas" combines
-OTHER_REQUESTS = 256
+# 128 requests (two one-shot batches, the continuous loops' stream) and 6
+# train steps a model: cut from 256 and 10 to make room for phase 16
+OTHER_REQUESTS = 128
+OTHER_TRAIN_STEPS = 6
 # requests of the continuous loops' warm-up runs (a full batch and a
 # refill: every program shape of the loop, the device loop's capture)
 WARM_REQUESTS = B + REFILL
@@ -3945,9 +3980,10 @@ def answer_agreement_ref(row, cap, eos):
 def train_other(dev, name):
     """bf16 training over f32 masters (the model's training-attention sites
     and copy attentions through their kernels): the first step's loss and
-    gradient against the plain versions (same dropout bits), 10 steps on one
-    batch (the loss must fall; launches counted), one step under
-    no_host_sync. GLKS trains its ds_mle_mce_train losses."""
+    gradient against the plain versions (same dropout bits),
+    OTHER_TRAIN_STEPS steps on one batch (the loss must fall; launches
+    counted), one step under no_host_sync. GLKS trains its
+    ds_mle_mce_train losses."""
     from case_rg_tpu_torch.config import TrainConfig
     from case_rg_tpu_torch.device import batch_to_device, no_host_sync
     from case_rg_tpu_torch.kernels import additive_attention as aa
@@ -4009,7 +4045,7 @@ def train_other(dev, name):
         ta.LAUNCHES_FWD["rng"] = ta.LAUNCHES_BWD["rng"] = 0
         aa.LAUNCHES = aa.LAUNCHES_BWD = 0
         losses, times = [], []
-        for _ in range(TRAIN_STEPS):
+        for _ in range(OTHER_TRAIN_STEPS):
             t0 = time.perf_counter()
             o = trainer.train_step(st, batch, gen)
             torch.cuda.synchronize()
@@ -4052,6 +4088,9 @@ def auto_routing():
                    bilinear.set_additive_kernel, multimem.set_fused_stack):
         switch(None)
     attention.set_fused_train_attn_rng(True)
+    attention.set_bf16_scores(False)
+    from case_rg_tpu_torch.ops.dropout import set_seeded_dropout
+    set_seeded_dropout(False)
 
 
 def other_models(dev):
@@ -4117,15 +4156,17 @@ def text_checkpoint(name, vocab, out, dev):
 def exported_vs_live(art, live, batches, launches, what):
     """The loaded archive and the live predict on the same batches: outputs
     equal bit for bit, each kernel's launches a batch (the counters set to
-    0 before each call) equal to each other and to ``launches``, ms per
-    batch by the host clock (after a warm call), and a profiled batch's
-    device busy ms and idle share."""
+    0 before each call) equal to each other and to ``launches`` (a dict,
+    or a function of the batch's outputs that gives one), ms per batch by
+    the host clock (after a warm call), and a profiled batch's device busy
+    ms and idle share."""
     from case_rg_tpu_torch.runtime.graphs import launch_counts
     res, outs = {}, {}
     for name, fn in (("live", live), ("exported", art.call)):
         fn(batches[0])
         torch.cuda.synchronize()
         ms, counts, outs[name] = [], [], []
+        want = []
         for bt in batches:
             for mod in graph_counters():
                 mod.LAUNCHES = 0
@@ -4135,9 +4176,10 @@ def exported_vs_live(art, live, batches, launches, what):
             ms.append((time.perf_counter() - t0) * 1e3)
             counts.append(launch_counts())
             outs[name].append({k: v.cpu() for k, v in out.items()})
-        check(all(c == launches for c in counts),
-              f"export {what}: {name} launches {counts} a batch, "
-              f"expected {launches}")
+            want.append(launches(outs[name][-1]) if callable(launches)
+                        else launches)
+        check(counts == want, f"export {what}: {name} launches {counts} a "
+              f"batch, expected {want}")
         prof = profile_device(fn, batches[:1])
         res[name] = {"ms_per_batch": ms, "launches_per_batch": counts[0],
                      **{k: prof[k] for k in ("device_busy_ms_per_batch",
@@ -4223,7 +4265,7 @@ def serve_router(prep, outs, reqs):
 def export_and_router(dev):
     """Phase 15 (module docstring): (a) cli/export_model of CaSE at the
     serving widths, greedy and rank-only, each loaded archive held to the
-    live predict, and the pallas argmax mode's program traced in process; (b) cli/serve --from_export against the checkpoint's
+    live predict; (b) cli/serve --from_export against the checkpoint's
     fixed-trip serving on the text requests; (c) the router over CaSE and
     Masque device-loop backends against each backend alone. Returns the
     phase's record; prints a line per part."""
@@ -4271,19 +4313,22 @@ def export_and_router(dev):
                                device=dev)
         if name == "pallas":
             # traced in process, not saved: an archive's save and load
-            # take about 30 s at these widths, and greedy's show them
+            # take about 30 s at these widths, and greedy's show them; kept
+            # for phase 16 (b), its parameters the model's own
             t0 = time.perf_counter()
             program = export_predict(model, cfg, batches[0], T_ANS,
                                      fast_argmax=mode, device=dev)
             rec = {"export_s": time.perf_counter() - t0,
-                   "ops": graph_ops(program)}
-            art = ExportedPredict(program, ["cuda"])
+                   "ops": graph_ops(program),
+                   "nodes": len(program.graph.nodes)}
+            art = pallas = ExportedPredict(program, ["cuda"])
+            del program
         else:
             arts[name] = os.path.join(EXPORT_DIR, f"case_{name}.pt2")
             rep = export_main(common + ["--out", arts[name], "--check"]
                               + flags)
             rec = {k: rep[k] for k in ("export_s", "save_s", "load_s",
-                                       "ops")}
+                                       "ops", "nodes")}
             rec["artifact_mb"] = rep["bytes"] / 1e6
             art = rep.pop("artifact")
         check(set(rec["ops"]) == {k for k, n in launches.items() if n},
@@ -4293,7 +4338,11 @@ def export_and_router(dev):
         res[f"a_{name}"] = rec
         print(f"export and multi-model serving (a) {name}: "
               + json.dumps(rec), flush=True)
-    del model, live
+    del live
+    res["early_exit"] = early_exit_export(dev, cfg, model, batches,
+                                          res["a_pallas"], pallas)
+    print("early-exit export: " + json.dumps(res["early_exit"]), flush=True)
+    del model, pallas
     torch.cuda.empty_cache()
 
     # (b) cli/serve --from_export = cli/serve --no-early_exit from the
@@ -4346,6 +4395,343 @@ def export_and_router(dev):
     return res
 
 
+# ---- phase 16: training options and early-exit export ----
+
+# the training options of one step, each against the default (cli/run's
+# --seeded_dropout and --remat; the default is bf16 over f32 masters with
+# the in-kernel-RNG training attention)
+TRAIN_OPTIONS = {"default": (False, ""), "seeded_dropout": (True, ""),
+                 "remat_dots": (False, "dots"),
+                 "remat_dots_batch": (False, "dots_batch"),
+                 "remat_nothing": (False, "nothing")}
+OPTION_STEPS = 2            # timed steps an option, after one warm-up step
+# a bf16-score step's loss against the f32-score step's, relative, and
+# its gradients' cosine with theirs (computed in f64; they must differ)
+BF16_SCORES_LOSS_RTOL = 0.01
+BF16_SCORES_GRAD_COSINE = 0.999
+# dense attend calls in a CaSE train step's forward: the decoders' causal
+# self-attention (an additive bias keeps it off the kernels), a layer each
+# of the two 4-layer stacks; the sites --bf16_scores reaches
+DENSE_ATTEND = 2 * DEC_LAYERS
+
+
+def option_steps(dev, trainer, fresh, batch, name):
+    """One option's reading: the first step's losses and gradients (from
+    the fresh parameters and generator), the training kernels' launches in
+    it and its calls of the dense ``attend`` (all, and those that take
+    bf16 scores), ms a step by the host clock over OPTION_STEPS steps
+    after a warm-up, the peak of allocated device memory over those steps,
+    and a profiled step's device busy ms."""
+    from case_rg_tpu_torch.kernels import additive_attention as aa
+    from case_rg_tpu_torch.kernels import train_attention as ta
+    from case_rg_tpu_torch.ops import attention
+    st, gen = fresh()
+    torch.cuda.synchronize()
+    ta.LAUNCHES_FWD["rng"] = ta.LAUNCHES_BWD["rng"] = 0
+    aa.LAUNCHES = aa.LAUNCHES_BWD = 0
+    dense, bf16 = attention.attend, []
+
+    def counted(q, k, v, **kw):
+        bf16.append(attention._score_dtype(q.dtype) == torch.bfloat16)
+        return dense(q, k, v, **kw)
+    attention.attend = counted
+    try:
+        losses, grads = trainer.loss_and_grads(st, batch, gen)
+    finally:
+        attention.attend = dense
+    torch.cuda.synchronize()
+    launches = {"train_mha_rng": [ta.LAUNCHES_FWD["rng"],
+                                  ta.LAUNCHES_BWD["rng"]],
+                "additive_scores": [aa.LAUNCHES, aa.LAUNCHES_BWD],
+                "dense_attend": [len(bf16), sum(bf16)]}
+    flat = torch.cat([g.float().flatten() for g in grads.values()])
+    del grads
+    st, gen = fresh()
+    trainer.train_step(st, batch, gen)               # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times = []
+    for _ in range(OPTION_STEPS):
+        t0 = time.perf_counter()
+        o = trainer.train_step(st, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(o["total"])), f"options {name}: loss")
+    prof = profile_device(lambda bt: trainer.train_step(st, bt, gen),
+                          [batch])
+    return losses["total"].item(), flat, {
+        "launches": launches,
+        "losses": {k: v.item() for k, v in losses.items()},
+        "ms_per_step": times,
+        "device_busy_ms_per_step": prof["device_busy_ms_per_batch"],
+        "device_idle_share": prof["device_idle_share"],
+        "peak_allocated_mb": peak / 1e6,
+        "peak_above_state_mb": (peak - base) / 1e6}
+
+
+def train_options(dev):
+    """Phase 16 (a): CaSE at the serving widths, dropout 0.1, B=64, bf16
+    over f32 masters, the default in-kernel-RNG training attention: a step
+    from the same parameters and generator seed under each of
+    TRAIN_OPTIONS, its loss equal to the default's bit for bit and its
+    gradients at cosine >= FIRST_GRAD_COSINE (the embedding gradient's
+    accumulating index_put adds in no fixed order), the training kernels'
+    launches and the dense attend calls (remat runs each forward twice);
+    then bf16 attention scores on and off (the DENSE_ATTEND sites take
+    them, the gradients move at cosine >= BF16_SCORES_GRAD_COSINE), and a
+    remat step under no_host_sync."""
+    from case_rg_tpu_torch.config import ModelConfig, TrainConfig
+    from case_rg_tpu_torch.device import batch_to_device, no_host_sync
+    from case_rg_tpu_torch.models import create_model, perturb_affine
+    from case_rg_tpu_torch.ops import attention
+    from case_rg_tpu_torch.ops.dropout import set_seeded_dropout
+    from case_rg_tpu_torch.train.trainer import Trainer
+
+    auto_routing()
+    cfg = ModelConfig(name="case", vocab_size=V, embedding_size=E,
+                      hidden_size=E, num_heads=H, enc_layers=ENC_LAYERS,
+                      dec_layers=DEC_LAYERS, max_dec_len=T_ANS,
+                      max_target_length=T_ANS, dropout=RATE,
+                      param_dtype="float32")
+    model = create_model("case", cfg, device=dev, seed=0)
+    perturb_affine(model, torch.Generator(device=dev).manual_seed(1))
+    init = {k: v.detach().clone() for k, v in model.named_parameters()}
+    batch = batch_to_device(make_train_batch(np.random.RandomState(1)), dev)
+
+    def fresh():
+        with torch.no_grad():
+            for k, p in model.named_parameters():
+                p.copy_(init[k])
+        return trainer.init_state(), torch.Generator(device=dev).manual_seed(7)
+
+    res = {}
+    try:
+        ref = None
+        for name, (seeded, remat) in TRAIN_OPTIONS.items():
+            set_seeded_dropout(seeded)
+            trainer = Trainer(model, TrainConfig(
+                batch_size=B, learning_rate=2.5e-4, warmup_steps=1,
+                compute_dtype="bfloat16", remat=remat), total_steps=1000,
+                device=dev)
+            loss, flat, rec = option_steps(dev, trainer, fresh, batch, name)
+            fwd = TRAIN_SITES_PER_STEP * (2 if remat else 1)
+            want = {"train_mha_rng": [fwd, TRAIN_SITES_PER_STEP],
+                    "additive_scores": [4 if remat else 2, 2],
+                    "dense_attend": [DENSE_ATTEND * (2 if remat else 1),
+                                     0]}
+            check(rec["launches"] == want, f"options {name}: launches "
+                  f"{rec['launches']}, expected {want}")
+            if ref is None:
+                ref = (loss, flat)
+            cosine = F.cosine_similarity(flat, ref[1], dim=0).item()
+            check(loss == ref[0], f"options {name}: loss {loss} vs the "
+                  f"default's {ref[0]}")
+            check(cosine >= FIRST_GRAD_COSINE, f"options {name}: gradient "
+                  f"cosine {cosine}")
+            rec.update(loss=loss, grad_cosine=cosine,
+                       grad_max_abs_diff=(flat - ref[1]).abs().max().item())
+            del flat
+            res[name] = rec
+            print(f"training options {name}: " + json.dumps(rec),
+                  flush=True)
+        # bf16 scores: the default's step with the switch on; the default
+        # keeps f32 scores
+        set_seeded_dropout(False)
+        trainer = Trainer(model, TrainConfig(
+            batch_size=B, learning_rate=2.5e-4, warmup_steps=1,
+            compute_dtype="bfloat16"), total_steps=1000, device=dev)
+        attention.set_bf16_scores(True)
+        loss, flat, rec = option_steps(dev, trainer, fresh, batch,
+                                       "bf16_scores")
+        attention.set_bf16_scores(False)
+        l32 = res["default"]["loss"]
+        # the switch reaches the dense sites, and their gradients move
+        cosine = F.cosine_similarity(flat.double(), ref[1].double(),
+                                     dim=0).item()
+        diff = (flat - ref[1]).abs().max().item()
+        del flat, ref
+        check(rec["launches"]["dense_attend"] == [DENSE_ATTEND] * 2,
+              f"options bf16_scores: dense attend calls (all, bf16 scores) "
+              f"{rec['launches']['dense_attend']}, expected {DENSE_ATTEND}")
+        check(np.isfinite(loss) and abs(loss - l32) <= BF16_SCORES_LOSS_RTOL
+              * abs(l32), f"options bf16_scores: loss {loss} vs f32 scores "
+              f"{l32}")
+        check(diff > 0 and cosine >= BF16_SCORES_GRAD_COSINE,
+              f"options bf16_scores: gradients vs f32 scores: largest "
+              f"difference {diff}, cosine {cosine}")
+        rec.update(loss=loss, f32_scores_loss=l32,
+                   f32_scores_losses=res["default"]["losses"],
+                   loss_rel_diff=abs(loss - l32) / abs(l32),
+                   grad_cosine=cosine, grad_max_abs_diff=diff)
+        res["bf16_scores"] = rec
+        print("training options bf16_scores: " + json.dumps(rec),
+              flush=True)
+        trainer = Trainer(model, TrainConfig(
+            batch_size=B, learning_rate=2.5e-4, warmup_steps=1,
+            compute_dtype="bfloat16", remat="dots"), total_steps=1000,
+            device=dev)
+        st, gen = fresh()
+        with no_host_sync():
+            o = trainer.train_step(st, batch, gen)
+        check(bool(torch.isfinite(o["total"])), "sync check: remat step")
+        res["sync_check"] = "a remat dots step under no_host_sync"
+    finally:
+        set_seeded_dropout(False)
+        attention.set_bf16_scores(False)
+    del model, init, trainer, st
+    torch.cuda.empty_cache()
+    return res
+
+
+# EOS pushes tried in turn (phase 16 (b)) until every row of a batch ends
+# before T_ANS; then up to EOS_BISECT halvings of the last interval while
+# the loop stops before a quarter of T_ANS (random weights flip from no
+# row ending to every row ending at the first step over a narrow range)
+EOS_PUSHES = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0)
+EOS_BISECT = 10
+
+
+def push_to_early_exit(model, cfg, live, batch):
+    """Push CaSE's EOS (``push_eos``) until every row of ``batch`` ends
+    before T_ANS in the live early-exit predict ``live``, aiming at a
+    stop past T_ANS // 4 (EOS_PUSHES, EOS_BISECT). Returns (push, steps
+    run); fails the run if no push ends every row early."""
+    pushed, lo, hi, n = 0.0, 0.0, None, T_ANS
+    dec = model.decoder
+    base = (dec.gen1.bias.detach().clone(), dec.mix.bias.detach().clone())
+
+    def to(x):
+        nonlocal pushed
+        push_eos(model, cfg, x, base)
+        pushed = x
+        return steps_run(live(batch)["answer"])
+    for x in EOS_PUSHES:
+        n = to(x)
+        if n < T_ANS:
+            hi = x
+            break
+        lo = x
+    check(n < T_ANS, f"early exit: {n} steps run with the EOS logit pushed "
+          f"by {pushed}")
+    best = (hi, n)
+    for _ in range(EOS_BISECT):
+        if best[1] >= T_ANS // 4:
+            break
+        mid = (lo + hi) / 2
+        m = to(mid)
+        if m < T_ANS:
+            hi, best = mid, (mid, m)
+        else:
+            lo = mid
+    if pushed != best[0]:
+        to(best[0])
+    return best
+
+
+def push_eos(model, cfg, x, base):
+    """CaSE's EOS logit raised by ``x`` (the generator's hidden bias moved
+    along the EOS row of its vocabulary projection, which has no bias) and
+    the mix head's generation logit by ``x`` (random weights leave the
+    copy distributions most of the mass), from ``base``, the two biases
+    unpushed. In place: programs traced from ``model`` share its
+    parameters and see the push too."""
+    dec = model.decoder
+    w = dec.gen2.weight[cfg.eos_id].float()
+    with torch.no_grad():
+        dec.gen1.bias.copy_(base[0] + (x * w / w.square().sum()).to(
+            base[0].dtype))
+        dec.mix.bias.copy_(base[1])
+        dec.mix.bias[0] += x
+
+
+def steps_run(answer) -> int:
+    """Steps a greedy loop ran: the last column holding a token, plus 1."""
+    cols = (answer != 0).any(0).nonzero()
+    return int(cols.max()) + 1 if len(cols) else 0
+
+
+def early_exit_export(dev, cfg, model, batches, fixed, fixed_art):
+    """Phase 16 (b), run on phase 15's CaSE (bf16, the serving widths) and
+    its two B=64 batches of text requests: the early-exit decode (a
+    while_loop) traced in process with --fast_argmax pallas, held to the
+    live early-exit predict (outputs equal bit for bit, each kernel's
+    launches a batch equal, and as EXPORT_VARIANTS' pallas program says
+    per step run); export s, graph nodes, steps run, ms a batch and device
+    busy ms beside ``fixed``, the record of phase 15 (a)'s fixed-trip
+    pallas program (``fixed_art``) on the same batches. Then the EOS logit
+    pushed (EOS_PUSHES) until every row of the first batch ends before
+    T_ANS: the early-exit program against the live early-exit predict
+    again, its steps run below T_ANS, and the fixed-trip program against
+    its live predict on that batch. Last, what the loop body's copies of
+    the carried caches cost a step."""
+    from case_rg_tpu_torch.runtime.exported import (ExportedPredict,
+                                                    export_predict, graph_ops)
+    from case_rg_tpu_torch.runtime.inference import make_predict_fn
+    per_step = EXPORT_VARIANTS["pallas"][2]
+    steps = []
+
+    def launches(out):
+        n = steps_run(out["answer"])
+        steps.append(n)
+        return {k: v if k == "fused_mha" else v // T_ANS * n
+                for k, v in per_step.items()}
+
+    live = make_predict_fn(model, cfg, T_ANS, early_exit=True,
+                           fast_argmax="pallas", device=dev)
+    t0 = time.perf_counter()
+    program = export_predict(model, cfg, batches[0], T_ANS, early_exit=True,
+                             fast_argmax="pallas", device=dev)
+    rec = {"export_s": time.perf_counter() - t0,
+           "nodes": len(program.graph.nodes), "ops": graph_ops(program),
+           "body_nodes": len(
+               program.graph_module.while_loop_body_graph_0.graph.nodes)}
+    early = ExportedPredict(program, ["cuda"])
+    del program
+    rec.update(exported_vs_live(early, live, batches, launches,
+                                "(16) early exit"))
+    # launches() ran on the live outputs, then on the exported ones
+    rec["steps_run"] = steps[:len(batches)]
+    rec["fixed_trip"] = {k: fixed[k] for k in ("export_s", "nodes")}
+    rec["fixed_trip"].update({k: fixed["exported"][k] for k in (
+        "ms_per_batch", "device_busy_ms_per_batch", "device_idle_share")})
+
+    # every row ending early
+    pushed, n = push_to_early_exit(model, cfg, live, batches[0])
+    steps.clear()
+    ee = exported_vs_live(early, live, batches[:1], launches,
+                          "(16) early exit, EOS pushed")
+    check(steps == [n, n], f"early exit, EOS pushed: steps run {steps}, "
+          f"the live predict's {n}")
+    fixed_live = make_predict_fn(model, cfg, T_ANS, early_exit=False,
+                                 fast_argmax="pallas", device=dev)
+    ft = exported_vs_live(fixed_art, fixed_live, batches[:1], per_step,
+                          "(16) fixed trip, EOS pushed")
+    rec["eos_pushed"] = {
+        "push": pushed, "steps_run": n,
+        "early_exit": {k: ee["exported"][k] for k in (
+            "ms_per_batch", "device_busy_ms_per_batch", "device_idle_share")},
+        "live_early_exit": {k: ee["live"][k] for k in (
+            "ms_per_batch", "device_busy_ms_per_batch")},
+        "fixed_trip": {k: ft["exported"][k] for k in (
+            "ms_per_batch", "device_busy_ms_per_batch", "device_idle_share")}}
+    del early, live, fixed_live
+    # the loop body's copies: the passage stack's [B, layers, T, 2E] cache,
+    # the query stack's per-layer [B, T, 2E] caches and the [B, T] history
+    caches = [torch.zeros(B, DEC_LAYERS, T_ANS, 2 * E, dtype=torch.bfloat16,
+                          device=dev)]
+    caches += [torch.zeros(B, T_ANS, 2 * E, dtype=torch.bfloat16, device=dev)
+               for _ in range(DEC_LAYERS)]
+    caches.append(torch.zeros(B, T_ANS, dtype=torch.bool, device=dev))
+    rec["carry_copy"] = {
+        "bytes_a_step": 2 * nbytes(*caches),
+        "us_a_step": 1e3 * device_ms(lambda: [c.clone() for c in caches])}
+    del caches
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -4358,6 +4744,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    def elapsed(what):
+        print(f"elapsed after {what}: {time.perf_counter() - t_start:.1f} s",
+              flush=True)
     card = smi()
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -4414,6 +4805,7 @@ def main() -> int:
     print("case serving: " + json.dumps(serve), flush=True)
     print("sync check: " + json.dumps(sync_check_serving(dev, cfg, model)),
           flush=True)
+    elapsed("CaSE serving")
     reqs, caps = make_requests(np.random.RandomState(3), N_REQUESTS)
     combine, combine_by_ls = check_and_time_combine(
         dev, reqs, phase_builds["copy_argmax"])
@@ -4428,20 +4820,25 @@ def main() -> int:
     sampled, sampled_base = serve_continuous_sampled(dev, cfg, model, reqs,
                                                      caps)
     print("sampled continuous serving: " + json.dumps(sampled), flush=True)
+    elapsed("continuous serving")
     dloop = serve_device_loop(dev, cfg, model, reqs, caps, cont_base,
                               sampled_base)
     print("device-loop serving: " + json.dumps(dloop), flush=True)
+    elapsed("the device loop")
     text = serve_text(dev)
     print("text serving: " + json.dumps({k: v for k, v in text.items()
                                           if k != "modes"}), flush=True)
+    elapsed("text serving")
     tmha = train_attention_phase(dev, gen, instances)
     train = train_case(dev)
     print("case training: " + json.dumps(train), flush=True)
+    elapsed("training")
     raw = raw_files(dev, float(np.median(train["rng"]["kernels"][
         "ms_per_step"])))
     print("raw files: " + json.dumps({k: raw[k] for k in (
         "corpus", "prepare_s", "preempt", "avg_s", "evaluate_s",
         "phase_s")}), flush=True)
+    elapsed("raw files")
     t0 = time.perf_counter()
     others = other_models(dev)
     print("other models: " + json.dumps({
@@ -4449,6 +4846,7 @@ def main() -> int:
         "ms_per_batch": {n: others[n]["ms_per_batch"] for n in others},
         "dense_sites": {n: others[n]["dense_sites"] for n in others}}),
         flush=True)
+    elapsed("the other models")
     routed = export_and_router(dev)
     print("export and multi-model serving: " + json.dumps({
         "phase_s": routed["phase_s"],
@@ -4456,6 +4854,23 @@ def main() -> int:
                      if k.startswith("a_")},
         "router_requests_per_s": routed["c_router"]["requests_per_s"]}),
         flush=True)
+    elapsed("export and the router")
+    t0 = time.perf_counter()
+    options = train_options(dev)
+    early = routed["early_exit"]
+    print("training options and early-exit export: " + json.dumps({
+        "phase_s": time.perf_counter() - t0, "card": card,
+        "ms_per_step": {k: float(np.median(v["ms_per_step"]))
+                        for k, v in options.items() if k in TRAIN_OPTIONS},
+        "peak_allocated_mb": {k: v["peak_allocated_mb"]
+                              for k, v in options.items()
+                              if k in TRAIN_OPTIONS},
+        "export_s": {"early_exit": early["export_s"],
+                     "fixed_trip": early["fixed_trip"]["export_s"]},
+        "steps_run": early["steps_run"],
+        "eos_pushed": early["eos_pushed"],
+        "carry_copy": early["carry_copy"]}), flush=True)
+    elapsed("the training options")
 
     kernels = [
         {"name": "fused_mha", "route": "cuda",

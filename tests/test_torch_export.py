@@ -9,8 +9,11 @@ library.py``) and exported predict programs (``runtime/exported.py``,
   equal the live predict's (``torch.equal``), and a live predict after the
   export still gives the same answers (the decoder's folded-weight cache
   keeps real tensors);
+* the early-exit program (a ``while_loop``) with every route forced: each
+  op once in the loop's body, outputs equal to the live early-exit
+  predict's;
 * ``Pipeline.from_export`` against ``Pipeline.from_checkpoint(early_exit=
-  False)``, and its refusals.
+  False)``, and its refusals; ``cli/export_model --early_exit --check``.
 
 Each model's exported program against its live predict is
 ``tests/test_torch_export_models.py``. The ``cuda`` test (skips without a
@@ -185,6 +188,42 @@ def test_forced_routes_export_equals_live(forced):
             assert torch.equal(got[k], want[k]), k
 
 
+def test_forced_routes_early_exit_export_equals_live():
+    """The early-exit program (a ``while_loop`` whose body holds the step
+    once: ``stack_step``, which writes the passage stack's cache in place,
+    runs on a copy of the carried cache) with every kernel route forced
+    in bf16 and the pallas argmax: the graph holds each op once a step,
+    and its answers and ranks equal the live early-exit predict's."""
+    from tests.test_torch_export_models import _push_eos, _steps_run
+    attention.set_fused_attention(True)
+    attention.set_single_query_attention(True)
+    bilinear.set_additive_kernel(True)
+    try:
+        cfg, model, batches = _forced_case("bfloat16")
+        _push_eos(model, cfg, 4.0)
+        live = make_predict_fn(model, cfg, 4, early_exit=True,
+                               fast_argmax="pallas", device="cpu")
+        want = [live(b) for b in batches]
+        program = export_predict(model, cfg, batches[0], 4, early_exit=True,
+                                 fast_argmax="pallas", device="cpu")
+        with torch.inference_mode():
+            got = [program.module()(batch_to_device(b, "cpu"))
+                   for b in batches]
+    finally:
+        attention.set_fused_attention(None)
+        attention.set_single_query_attention(None)
+        bilinear.set_additive_kernel(None)
+    body = program.graph_module.while_loop_body_graph_0
+    assert graph_ops(body) == {"stack_step": 1, "combine_copy_mass": 1,
+                               "single_query_mha": 2 * 2,
+                               "additive_scores": 2}
+    assert set(graph_ops(program)) == {"fused_mha"}     # the encode
+    for g, w in zip(got, want):
+        for k in w:
+            assert torch.equal(g[k], w[k]), k
+    assert min(_steps_run(w["answer"]) for w in want) < 4
+
+
 def test_live_predict_after_export_is_unchanged(forced):
     """The export traces with fake tensors; the decoder's folded stack
     weights cached before it stay real, so the live predict after it gives
@@ -287,9 +326,10 @@ def test_pipeline_from_export_refusals(pipeline_dir, tmp_path):
 def test_export_cli_report_and_refusals(pipeline_dir, tmp_path,
                                         monkeypatch):
     """The CLI's report and sidecar (both stacks on the stack kernel's
-    op, a launch a step each); --early_exit, --rank_only on a model
-    without a rank head, and the default device without a card are
-    refused."""
+    op, a launch a step each); --early_exit exports a program that
+    ``--check`` holds to the live early-exit predict, with the JAX CLI's
+    sidecar keys; --rank_only on a model without a rank head, and the
+    default device without a card are refused."""
     from case_rg_tpu_torch.cli.export_model import main as export_main
     d = pipeline_dir
     rep = d["report"]
@@ -298,9 +338,14 @@ def test_export_cli_report_and_refusals(pipeline_dir, tmp_path,
     assert rep["bytes"] == os.path.getsize(d["art"])
     base = ["--prepared_dir", d["prep"], "--output_path", d["out"],
             "--out", str(tmp_path / "x.pt2")] + DIMS
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        export_main(["--model", "case", "--early_exit", "--device", "cpu"]
-                    + base)
+    early = str(tmp_path / "early.pt2")
+    ee = export_main(["--model", "case", "--early_exit", "--check",
+                      "--device", "cpu", "--prepared_dir", d["prep"],
+                      "--output_path", d["out"], "--batch_size", "2",
+                      "--out", early] + DIMS)
+    assert ee["sidecar"] == rep["sidecar"] and os.path.exists(early)
+    assert any(n.target is torch.ops.higher_order.while_loop
+               for n in torch.export.load(early).graph.nodes)
     with pytest.raises(SystemExit, match="no rank head"):
         export_main(["--model", "s2sa", "--rank_only", "--device", "cpu"]
                     + base)
@@ -346,3 +391,44 @@ def test_exported_case_equals_live_on_the_card(cuda, tmp_path):
         assert torch.equal(got[k], want[k]), k
     assert {k: c2[k] - c1[k] for k in c2} == {k: c1[k] - c0[k] for k in c1}
     assert all(c1[k] > c0[k] for k in c1)
+
+
+@pytest.mark.cuda
+def test_early_exit_export_equals_live_on_the_card(cuda, tmp_path):
+    """A bf16 CaSE with every kernel on its automatic route and the EOS
+    pushed so that rows end early, exported with ``early_exit`` on the
+    card, saved and loaded: the program's answers and ranks equal the
+    live early-exit predict's bit for bit, with the same launches of each
+    kernel, fewer steps than the fixed trip's."""
+    from case_rg_tpu_torch.runtime.exported import load_exported
+    from case_rg_tpu_torch.runtime.graphs import launch_counts
+    from tests.test_torch_export_models import _push_eos, _steps_run
+    vocab = toy_vocab()
+    cfg = build_model_cfg(ModelConfig(
+        embedding_size=256, hidden_size=256, num_heads=8, enc_layers=1,
+        dec_layers=2, max_target_length=6, max_dec_len=6,
+        param_dtype="bfloat16"), "case", vocab)
+    model = create_model("case", cfg, device=cuda, seed=1)
+    perturb_affine(model, torch.Generator(device=cuda).manual_seed(2))
+    _push_eos(model, cfg, 6.0)
+    dcfg = DataConfig(query_len=20, passage_len=100, num_passage=6,
+                      answer_len=6)
+    batch = chunk_to_batch(toy_requests(4, 6), "case", vocab, dcfg, 4)
+    program = export_predict(model, cfg, batch, 6, early_exit=True,
+                             fast_argmax="pallas", device=cuda)
+    path = str(tmp_path / "case_early.pt2")
+    torch.export.save(program, path)
+    art = load_exported(path, ["cuda"])
+    live = make_predict_fn(model, cfg, 6, early_exit=True,
+                           fast_argmax="pallas", device=cuda)
+    c0 = launch_counts()
+    want = live(batch)
+    c1 = launch_counts()
+    got = art.call(batch)
+    c2 = launch_counts()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert {k: c2[k] - c1[k] for k in c2} == {k: c1[k] - c0[k] for k in c1}
+    steps = _steps_run(want["answer"].cpu())
+    assert c1["stack_step"] - c0["stack_step"] == steps
+    assert steps < 6, f"no early exit: {steps} of 6 steps"

@@ -18,7 +18,9 @@ stack step; they skip without a card):
   new weights;
 * a round's host side (encode, ring push, wrap, the ``written`` fill, the
   replay, the harvest copy) and a chunk-loop refill run under
-  ``device.no_host_sync``.
+  ``device.no_host_sync``;
+* a capture sets no process-wide sync mode: another thread that blocks on
+  the card with ``.item()`` while the capture warms up does not raise.
 
 No JAX here: on a card without it, README's ``cuda`` command runs this
 file.
@@ -269,3 +271,45 @@ def test_captures_from_two_threads_while_a_third_launches(cuda):
     assert not errors, errors
     assert results[0] and results[1]
     assert results["third"][0] > 0 and results["third"][1]
+
+
+@pytest.mark.cuda
+def test_a_serving_capture_leaves_other_threads_free_to_block(cuda):
+    """While a capture warms up, a second thread reads a result with
+    ``.item()``, which waits on the card: the warm-up must set no
+    process-wide sync mode (under ``no_host_sync`` that read raises)."""
+    import threading
+    entered, done = threading.Event(), threading.Event()
+    calls, errors, read = [], [], []
+    a = torch.randn(128, 128, device=cuda)
+    out = torch.empty(128, 128, device=cuda)
+
+    def body():
+        out.copy_(torch.tanh(a @ a))
+
+    def warmup():
+        body()
+        calls.append(1)
+        if len(calls) == 2:         # the second warm-up
+            entered.set()
+            done.wait(timeout=60)
+
+    def reader():
+        entered.wait(timeout=60)
+        try:
+            read.append((a.sum() * 0 + 1).item())
+        except Exception as e:      # noqa: BLE001  (reported below)
+            errors.append(repr(e))
+        finally:
+            done.set()
+
+    t = threading.Thread(target=reader)
+    t.start()
+    g = graphs.CapturedGraph(body, warmup)
+    t.join(timeout=60)
+    assert not errors, errors
+    assert read == [1.0] and len(calls) == 2
+    out.zero_()
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.tanh(a @ a))

@@ -63,12 +63,14 @@ TIE = 1e-5
 def routing():
     """``cli/run`` sets the process-wide routing switches; put them back."""
     from case_rg_tpu_torch.models import multimem
-    from case_rg_tpu_torch.ops import attention
+    from case_rg_tpu_torch.ops import attention, dropout
     yield
     attention.set_fused_train_attention(None)
     attention.set_fused_train_attn_rng(True)
     attention.set_fused_attention(None)
+    attention.set_bf16_scores(False)
     multimem.set_fused_stack(None)
+    dropout.set_seeded_dropout(False)
 
 
 def _arrays(n, seed, v=TOY["vocab_size"]):
@@ -789,19 +791,39 @@ def ck_cfg(ck, name):
     (["--model", "glks", "--mode", "ps_train"], "only defined for masque"),
     (["--multihost"], "item 7"),
     (["--mesh_shape", "2,1"], "item 7"), (["--pool_shard"], "item 7"),
-    (["--ckpt_backend", "orbax"], "item 2"), (["--remat", "dots"], "item 2"),
-    (["--seeded_dropout"], "item 2"), (["--bf16_scores"], "item 2")],
+    (["--ckpt_backend", "orbax"], "item 2"), (["--remat", "dots"], None),
+    (["--seeded_dropout"], None), (["--bf16_scores", "--bf16_train"], None)],
     ids=["ps_train_glks", "multihost", "mesh_shape", "pool_shard", "orbax",
          "remat", "seeded_dropout", "bf16_scores"])
-def test_refused_flags(tmp_path, extra, message):
+def test_refused_flags(jax_run, tmp_path, extra, message):
+    """The flags still refused exit naming their ROADMAP item. The training
+    options (``--remat``, ``--seeded_dropout``, ``--bf16_scores``), refused
+    until they were ported, now train an epoch of the toy corpus: the
+    checkpoint is written, its losses are finite and the switch is set."""
+    from case_rg_tpu_torch.ops import attention, dropout
+    from case_rg_tpu_torch.train.checkpoint import load_checkpoint
     argv = ["--model", "case", "--mode", "train", "--output_path",
             str(tmp_path)]
     for flag in ("--model", "--mode"):
         if flag in extra:
             i = argv.index(flag)
             del argv[i:i + 2]
-    with pytest.raises(SystemExit, match=message):
-        run_main(argv + extra)
+    if message is not None:
+        with pytest.raises(SystemExit, match=message):
+            run_main(argv + extra)
+        return
+    run_main(argv + extra + ["--data_path", jax_run["root"], "--dataset",
+                             "toy", "--device", "cpu", "--epoch", "1",
+                             "--batch_size", "4", "--warmup_steps", "1"]
+             + SHAPES)
+    ck = load_checkpoint(str(tmp_path), 0)
+    assert ck["step"] > 0
+    with open(os.path.join(tmp_path, "metrics.jsonl")) as f:
+        rows = [json.loads(x) for x in f]
+    assert rows and all(np.isfinite(v) for r in rows for k, v in r.items()
+                        if k.startswith("dev_"))
+    assert dropout.seeded_dropout_enabled() == ("--seeded_dropout" in extra)
+    assert attention._BF16_SCORES == ("--bf16_scores" in extra)
 
 
 def test_entry_points_need_a_card_unless_asked(jax_run, monkeypatch):
@@ -872,3 +894,53 @@ def test_train_and_test_on_the_card(cuda, tmp_path):
             want = f.read()
         with open(os.path.join(out, "result", name)) as f:
             assert f.read() == want, name
+
+
+@pytest.mark.cuda
+def test_remat_step_under_no_host_sync_on_the_card(cuda):
+    """A bf16 CaSE train step on the card with the in-kernel-RNG training
+    attention, under ``--remat dots`` and under ``device.no_host_sync``:
+    its loss equals the step without remat bit for bit, its gradients
+    agree at cosine >= 0.9999 (the embedding gradient's accumulating
+    index_put adds in no fixed order), and the recompute runs each
+    training-attention forward again."""
+    from case_rg_tpu_torch.config import ModelConfig, TrainConfig
+    from case_rg_tpu_torch.device import batch_to_device, no_host_sync
+    from case_rg_tpu_torch.kernels import train_attention
+    from case_rg_tpu_torch.models import create_model
+    from case_rg_tpu_torch.train.trainer import Trainer
+    cfg = ModelConfig(name="case", vocab_size=1000, embedding_size=256,
+                      hidden_size=256, num_heads=8, enc_layers=1,
+                      dec_layers=2, max_dec_len=12, max_target_length=12,
+                      dropout=0.1)
+    rng = np.random.RandomState(0)
+    b, p, lp = 4, 6, 100
+    batch = {"query": rng.randint(4, 1000, (b, 1, 24)),
+             "passage": rng.randint(4, 1000, (b, p, lp)),
+             "response": rng.randint(4, 1000, (b, 12)),
+             "passage_label": rng.randint(0, p, b),
+             "token_label": (rng.rand(b, p, lp) > .9).astype(np.float32),
+             "token_weight": np.ones((b, p, lp), np.float32)}
+    batch["response"][:, 9:] = 0
+    batch = batch_to_device({k: v.astype(np.int32) if v.dtype == np.int64
+                             else v for k, v in batch.items()}, cuda)
+    runs = []
+    for remat in ("", "dots"):
+        model = create_model("case", cfg, device=cuda, seed=0)
+        trainer = Trainer(model, TrainConfig(compute_dtype="bfloat16",
+                                             remat=remat),
+                          total_steps=10, device=cuda)
+        st = trainer.init_state()
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        trainer.loss_and_grads(st, batch, gen)     # first-call work
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        before = train_attention.LAUNCHES_FWD["rng"]
+        with no_host_sync():
+            losses, grads = trainer.loss_and_grads(st, batch, gen)
+        torch.cuda.synchronize()
+        runs.append((losses["total"].item(),
+                     torch.cat([g.float().flatten() for g in grads.values()]),
+                     train_attention.LAUNCHES_FWD["rng"] - before))
+    (l0, g0, f0), (l1, g1, f1) = runs
+    assert l1 == l0 and f1 == 2 * f0 > 0
+    assert torch.nn.functional.cosine_similarity(g0, g1, dim=0) >= 0.9999

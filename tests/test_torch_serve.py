@@ -349,12 +349,29 @@ def test_http(served, extra):
      "--continuous does not apply"),
     (["--from_export", "artifact", "--bf16"], "--bf16 does not apply"),
     (["--pool_shard", "2"], "item 7"),
-    (["--bf16_scores"], "bf16-scores"),
+    (["--from_export", "artifact", "--bf16_scores"],
+     "--bf16_scores does not apply"),
 ], ids=["from_export-continuous", "from_export-bf16", "pool_shard",
         "bf16_scores"])
 def test_refused_flags(served, extra, message):
+    """Each refused flag exits with its message. ``--bf16_scores`` is
+    refused only with ``--from_export`` (the archive fixes its program);
+    on its own it is served (``test_bf16_scores_is_served``)."""
     with pytest.raises(SystemExit, match=message):
         _port(served, "refused", *extra)
+
+
+def test_bf16_scores_is_served(served):
+    """``--bf16_scores`` turns the switch on; on the f32 checkpoint every
+    score stays f32 (f32 inputs always get f32 scores), so the JSONL is
+    still the JAX CLI's."""
+    from case_rg_tpu_torch.ops import attention
+    try:
+        got = _port(served, "bf16_scores", "--bf16_scores")
+        assert attention._BF16_SCORES
+    finally:
+        attention.set_bf16_scores(False)
+    _same_jsonl(got, served)
 
 
 # ---- serving an exported program ----
@@ -406,6 +423,26 @@ def test_from_export_equals_the_jax_package(served, exported):
     """cli/serve --from_export on the CPU writes the JAX CLI's JSONL."""
     path = os.path.join(served["root"], "from_export.jsonl")
     port_main(exported["common"] + ["--output", path, "--device", "cpu"])
+    with open(path) as f:
+        _same_jsonl(f.read(), served)
+
+
+def test_from_export_early_exit_equals_the_jax_package(served):
+    """The JAX checkpoint exported with ``--early_exit`` (the decode a
+    ``while_loop``) and served with cli/serve --from_export on the CPU
+    writes the JAX CLI's JSONL; its sidecar has the JAX CLI's keys."""
+    from case_rg_tpu_torch.cli.export_model import main as export_main
+    art = os.path.join(served["root"], "case_b4_early.pt2")
+    report = export_main(["--model", "case", "--prepared_dir",
+                          served["prep"], "--output_path", served["out"],
+                          "--out", art, "--batch_size", "4", "--early_exit",
+                          "--device", "cpu"] + SHAPES)
+    assert set(report["sidecar"]) == SIDECAR_KEYS
+    common = served["common"]
+    path = os.path.join(served["root"], "from_export_early.jsonl")
+    port_main(["--prepared_dir", served["prep"], "--from_export", art,
+               "--input", common[common.index("--input") + 1], "--output",
+               path, "--device", "cpu"])
     with open(path) as f:
         _same_jsonl(f.read(), served)
 
