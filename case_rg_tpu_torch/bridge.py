@@ -15,6 +15,12 @@ sees JAX. Names map one for one ("a/b/c/kernel" -> "a.b.c.weight"):
   ``b_hh_...`` keep their names and layout (``ops/gru.GRU`` holds them
   as the JAX package does).
 
+Every port module keeps its JAX counterpart's parameter names, so these
+leaf rules carry any of them across, ``ops/generic_decoder.
+GenericDecoderLayer`` too (``self_attn``, ``memory_attn{i}``, their
+``self_norm``/``memory_norm{i}`` and Highway gates, ``linear1``/``linear2``;
+``tests/test_torch_generic_decoder.py``).
+
 The load is strict: an unused leaf, a parameter left unset or a shape
 mismatch raises.
 """

@@ -40,12 +40,30 @@ in the dense attention paths; the kernels keep f32 scores). Its default is
 the JAX CLI's auto rule: on exactly for ``--mode train/ps_train
 --bf16_train``. Every switch is set both ways on each ``main()``.
 
+Several cards (``runtime/mesh``): one process a card, started by torchrun,
+each with ``--multihost``::
+
+    torchrun --nproc_per_node 4 -m case_rg_tpu_torch.cli.run --multihost \
+        --model case --mode train ...
+
+joins the process group of torchrun's environment (NCCL with a card a
+rank; gloo where ranks share cards, and with ``--device cpu``).
+``--batch_size`` is each rank's batch, so the global batch is that times
+the ranks, as in the JAX package and the reference. ``--mode
+train/ps_train`` trains data-parallel (``train/trainer``: the global
+batch's loss and gradient, one state on every rank, checkpoints by rank
+0); ``--mode test`` decodes rows ``[rank::count]`` on each rank and writes
+``result/{dataset}_{split}_{epoch}.{rank}.answer`` and ``.run``, which
+``cli/evaluate`` merges; ``--mode avg`` writes on rank 0. ``--mesh_shape
+D`` or ``D,1`` must name the world size. ``--multihost`` without
+torchrun's environment raises.
+
 Flags with no effect in the port: ``--fast_rng``/``--no-fast_rng`` (the
 port has one dropout generator, Philox on the card) and the JAX package's
 XLA compile cache. Refused, each with the ROADMAP item that holds it:
-``--multihost``, ``--mesh_shape`` and ``--pool_shard`` (item 7) and
-``--ckpt_backend orbax`` (item 2: the card has no orbax, and no slice needs
-its on-disk format).
+``--pool_shard`` and a ``--mesh_shape`` model axis above 1 (item 7b: the
+pool and vocabulary axes over cards) and ``--ckpt_backend orbax`` (item 2:
+the card has no orbax, and no slice needs its on-disk format).
 """
 
 from __future__ import annotations
@@ -59,6 +77,7 @@ from ..config import ModelConfig, TrainConfig
 from ..data.prepare import load_prepared
 from ..data.vocab import Vocabulary
 from ..models import build_model_cfg
+from ..runtime import mesh
 from ..runtime.io import save_results
 from ..train.checkpoint import (best_epoch, checkpoint_exists,
                                 load_checkpoint, save_checkpoint)
@@ -167,7 +186,8 @@ def build_parser():
     p.add_argument("--min_window_size", type=int, default=4)
     p.add_argument("--num_windows", type=int, default=1)
     p.add_argument("--multihost", action="store_true",
-                   help="not ported (ROADMAP Queue 1 item 7): refused")
+                   help="join the process group of torchrun's environment "
+                        "(one process a card; runtime/mesh.init_distributed)")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="training: a torch.profiler trace of the loop "
                         "under this directory (runtime/profiling.trace)")
@@ -230,9 +250,11 @@ def build_parser():
                         "'dots' keeps matmul outputs, 'dots_batch' also "
                         "batched ones, 'nothing' recomputes all")
     p.add_argument("--mesh_shape", type=str, default="",
-                   help="not ported (ROADMAP Queue 1 item 7): refused")
+                   help="'D' or 'D,1': the data axis, which must be the "
+                        "world size; a model axis above 1 is not ported "
+                        "(ROADMAP Queue 1 item 7b): refused")
     p.add_argument("--pool_shard", action="store_true",
-                   help="not ported (ROADMAP Queue 1 item 7): refused")
+                   help="not ported (ROADMAP Queue 1 item 7b): refused")
     p.add_argument("--fast_rng", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="no effect in the port: dropout masks come from one "
@@ -244,13 +266,10 @@ def _refuse_unported(args) -> None:
     if args.mode == "ps_train" and args.model not in ("masque", "tmemnet"):
         raise SystemExit("--mode ps_train is only defined for masque and "
                          "tmemnet (their rank-only training)")
-    for flag, on in (("--multihost", args.multihost),
-                     ("--mesh_shape", bool(args.mesh_shape)),
-                     ("--pool_shard", args.pool_shard)):
-        if on:
-            raise SystemExit(f"{flag}: multi-device training and testing "
-                             "are not ported yet (ROADMAP Queue 1 item 7, "
-                             "parallelism)")
+    if args.pool_shard:
+        raise SystemExit("--pool_shard: the pool axis over a 'model' mesh "
+                         f"axis is not ported yet ({mesh.MODEL_AXIS_ITEM}); "
+                         "data parallelism over cards is --multihost")
     if args.ckpt_backend == "orbax":
         raise SystemExit("--ckpt_backend orbax: not ported (ROADMAP Queue 1 "
                          "item 2: the port writes its own checkpoints and "
@@ -297,7 +316,8 @@ def train(args):
                      resume=not args.no_resume,
                      checkpoint_every_steps=args.checkpoint_every_steps,
                      compute_dtype="bfloat16" if args.bf16_train
-                     else "float32", remat=args.remat)
+                     else "float32", remat=args.remat,
+                     mesh_shape=_mesh_shape(args))
     model = create_model(args.model, mcfg, device=args.device, seed=args.seed)
     loss_kwargs = {}
     if args.mode == "ps_train":
@@ -307,8 +327,10 @@ def train(args):
     trainer = Trainer(model, tc, total_steps, device=args.device,
                       loss_method_kwargs=loss_kwargs)
     state, start_epoch = trainer.resume_or_init(output)
-    print(f"[run] {args.model} train: {n} samples, {total_steps} steps, "
-          f"start epoch {start_epoch}", flush=True)
+    if mesh.process_index() == 0:
+        print(f"[run] {args.model} train: {n} samples, {total_steps} steps, "
+              f"start epoch {start_epoch}, {mesh.process_count()} rank(s)",
+              flush=True)
     # per-epoch dev loss (epoch selection without decoding every
     # checkpoint); logged as dev_* in metrics.jsonl
     eval_arrays = None
@@ -411,8 +433,8 @@ def test(args):
                 preds = _predict_continuous(args, cont, arrays)
             else:
                 preds = predict(arrays, predict_fn, args.batch_size)
-            save_results(preds, meta, vocab, output, 0, epoch,
-                         f"{args.dataset}_{split}")
+            save_results(preds, meta, vocab, output, mesh.process_index(),
+                         epoch, f"{args.dataset}_{split}")
 
 
 def _continuous_fns(args, model):
@@ -454,7 +476,9 @@ def _predict_continuous(args, fns, arrays):
 
     collected = []
     emit = lambda r, ids, rk: collected.append((r["i"], ids, rk))  # noqa: E731
-    reqs = ({"i": i} for i in range(len(arrays["id"])))
+    rows = range(len(arrays["id"]))[mesh.process_index()::
+                                    mesh.process_count()]
+    reqs = ({"i": i} for i in rows)
     if args.device_loop:
         run_continuous_device(reqs, make_batch, fns, args.batch_size, refill,
                               emit, max_len=args.max_target_length,
@@ -527,6 +551,17 @@ def set_switches(args) -> None:
     set_fused_stack(args.fused_stack)
 
 
+def _mesh_shape(args) -> tuple:
+    """``--mesh_shape`` as (D, M), checked against the world size; () when
+    not given."""
+    if not args.mesh_shape:
+        return ()
+    try:
+        return mesh.parse_mesh_shape(args.mesh_shape)
+    except ValueError as e:
+        raise SystemExit(str(e))
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
@@ -536,12 +571,22 @@ def main(argv=None):
                            else 64)
     np.random.seed(args.seed)
     set_switches(args)
-    if args.mode in ("train", "ps_train"):
-        train(args)
-    elif args.mode == "avg":
-        average(args)
-    else:
-        test(args)
+    if args.multihost:
+        try:
+            mesh.init_distributed(args.device)
+        except RuntimeError as e:
+            raise SystemExit(str(e))
+    try:
+        _mesh_shape(args)
+        if args.mode in ("train", "ps_train"):
+            train(args)
+        elif args.mode == "avg":
+            average(args)
+        else:
+            test(args)
+    finally:
+        if args.multihost:
+            mesh.shutdown()
 
 
 if __name__ == "__main__":

@@ -81,8 +81,9 @@ dense attention paths (``ops/attention.set_bf16_scores``; the kernels keep
 f32 scores), process-wide, as the JAX CLI does; with ``--from_export`` it
 is refused, since the archive fixes its program.
 
-Not served by the port yet: ``--pool_shard`` > 1 (parallelism, ROADMAP
-Queue 1 item 7), refused with a message.
+Not served by the port yet: ``--pool_shard`` > 1 (the pool axis over
+cards and the serving mesh, ROADMAP Queue 1 item 7b), refused with a
+message.
 """
 
 from __future__ import annotations
@@ -230,7 +231,7 @@ def build_parser():
                         "many rows are free before a mid-flight refill")
     p.add_argument("--pool_shard", type=int, default=1,
                    help="shard the passage pool over devices (not ported "
-                        "yet: ROADMAP Queue 1 item 7, parallelism)")
+                        "yet: ROADMAP Queue 1 item 7b)")
     p.add_argument("--pool_buckets", type=str, default="",
                    help="comma-separated static pool sizes (e.g. 2,5,10); "
                         "requests are routed to the smallest bucket that "
@@ -283,7 +284,8 @@ class _Pending:
 def _refuse_unported(args) -> None:
     if args.pool_shard > 1:
         raise SystemExit("--pool_shard > 1: the sharded serving mesh is not "
-                         "ported yet (ROADMAP Queue 1 item 7, parallelism)")
+                         "ported yet (ROADMAP Queue 1 item 7b: the pool axis "
+                         "over cards and multi-card serving)")
 
 
 def _from_export_args(args) -> dict:

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -68,10 +68,12 @@ class ModelConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """The training loop's knobs: the port's copy of the fields of
-    ``case_rg_tpu.config.TrainConfig`` that one device reads, with the same
-    defaults. Left out: the mesh and sharding fields (ROADMAP Queue 1 item
-    7) and ``ckpt_backend`` (the port writes its own checkpoint format
-    only)."""
+    ``case_rg_tpu.config.TrainConfig``, with the same defaults. Left out:
+    the axis names and ``shard_vocab_dim`` (the 'model' axis, ROADMAP Queue
+    1 item 7b) and ``ckpt_backend`` (the port writes its own checkpoint
+    format only). ``mesh_shape`` is the data axis only: () or (D,) or
+    (D, 1), D the ranks torchrun started (``runtime/mesh``);
+    ``pool_shard=True`` is refused by the trainer (item 7b)."""
 
     batch_size: int = 16
     epochs: int = 20
@@ -92,6 +94,9 @@ class TrainConfig:
     checkpoint_every_steps: int = 0   # 0 = epoch-end only
     output_path: str = "./output/"
     resume: bool = True
+    # parallelism
+    mesh_shape: Tuple[int, ...] = ()   # () => every rank on the data axis
+    pool_shard: bool = False           # the pool axis over 'model': refused
 
 
 # The reference's per-dataset constructor defaults differ, but

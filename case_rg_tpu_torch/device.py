@@ -2,7 +2,8 @@
 
 The entry points default to ``device="cuda"``. Without a card they raise
 instead of running on the CPU; the CPU is used only when a caller asks for
-it (the tests do)."""
+it (the tests do). In a process group that ``runtime/mesh.init_distributed``
+made on the card, "cuda" is this rank's card, ``cuda:LOCAL_RANK``."""
 
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ import contextlib
 import numpy as np
 import torch
 
+from .runtime.mesh import local_device
+
 
 def resolve_device(device="cuda") -> torch.device:
     dev = torch.device(device)
@@ -18,6 +21,8 @@ def resolve_device(device="cuda") -> torch.device:
         raise RuntimeError(
             "case_rg_tpu_torch: a CUDA device was requested but torch sees "
             "none; pass device='cpu' to run on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        return local_device() or dev
     return dev
 
 

@@ -7,12 +7,24 @@ loss-identical to a ragged one:
   TMemNet's loss);
 * ``bce_with_logits``: elementwise sigmoid BCE, mean over all elements;
 * ``one_hot_labels``: the scatter(1, label, 1) one-hot (zeros out of
-  range).
+  range);
+* ``batch_mean``: a sum over the batch divided by its count, which every
+  loss of the port ends with. Under data parallelism
+  (``runtime/mesh.global_batch``) the count is summed over the ranks first,
+  so each rank's loss is its share of the global batch's loss.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..runtime.mesh import batch_denominator
+
+
+def batch_mean(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """``num / max(den, 1)``, with ``den`` the global batch's count under
+    ``runtime/mesh.global_batch``."""
+    return num / batch_denominator(den).clamp_min(1.0)
 
 
 def _expand_weight(sample_weight, n: int, device) -> torch.Tensor:
@@ -27,7 +39,7 @@ def nll_from_probs(probs_at_target: torch.Tensor, targets: torch.Tensor,
     w = _expand_weight(sample_weight, targets.shape[0], targets.device)
     tok_w = (targets != 0).float() * w[:, None]
     loss = -torch.log(probs_at_target + eps)
-    return (loss * tok_w).sum() / tok_w.sum().clamp_min(1.0)
+    return batch_mean((loss * tok_w).sum(), tok_w.sum())
 
 
 def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor,
@@ -39,7 +51,7 @@ def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor,
            + torch.log1p(torch.exp(-logits.abs())))
     per_b = per.reshape(logits.shape[0], -1)
     elems = per_b.shape[1]
-    return (per_b.sum(dim=1) * w).sum() / (w.sum() * elems).clamp_min(1.0)
+    return batch_mean((per_b.sum(dim=1) * w).sum(), w.sum() * elems)
 
 
 def one_hot_labels(indices: torch.Tensor, num: int) -> torch.Tensor:
@@ -59,4 +71,4 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     tok_w = (targets != 0).float() * w[:, None]
     logp = torch.log_softmax(logits, dim=-1)
     picked = logp.gather(-1, targets.long()[..., None])[..., 0]
-    return -(picked * tok_w).sum() / tok_w.sum().clamp_min(1.0)
+    return -batch_mean((picked * tok_w).sum(), tok_w.sum())

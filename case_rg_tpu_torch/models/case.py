@@ -18,7 +18,8 @@ from torch import nn
 from ..config import ModelConfig
 from ..decode.loops import keys_from_seed
 from ..ops.masking import padding_mask
-from .base import bce_with_logits, nll_from_probs, one_hot_labels
+from .base import (batch_mean, bce_with_logits, nll_from_probs,
+                   one_hot_labels)
 from .components import TransformerSeqEncoder
 from .multimem import MultiMemoryDecoder
 from .towers import InteractionTower
@@ -114,8 +115,8 @@ class CaSEModel(nn.Module):
         mask = st["p_keep"].float()
         if w is not None:
             mask = mask * w.float()[:, None, None]
-        loss_se = (mask * per * batch["token_weight"]).sum() / \
-            mask.sum().clamp_min(1.0)
+        loss_se = batch_mean((mask * per * batch["token_weight"]).sum(),
+                             mask.sum())
 
         memories, keeps, weights, src_ids, answer_rep = \
             self._decoder_inputs(batch, st)

@@ -28,6 +28,8 @@ from ..ops.embedding import Embedding
 from ..ops.gru import GRU
 from ..ops.highway import Highway
 from ..ops.masking import masked_softmax, neg_inf, softmax
+from ..runtime.mesh import rank_share
+from .base import batch_mean
 from .components import GRUSeqEncoder
 
 
@@ -232,14 +234,14 @@ class GLKSModel(nn.Module):
         losses: Dict[str, torch.Tensor] = {}
         if "mle" in mode:
             tok_w = (resp != 0).float() * w[:, None]
-            losses["mle"] = -(torch.log(p_at + 1e-8) * tok_w).sum() / \
-                tok_w.sum().clamp_min(1.0)
+            losses["mle"] = -batch_mean(
+                (torch.log(p_at + 1e-8) * tok_w).sum(), tok_w.sum())
         if "mce" in mode:
-            losses["mce"] = 1.0 - 0.1 * (entropy * w[:, None]).sum() / \
-                (w.sum() * t).clamp_min(1.0)
+            losses["mce"] = rank_share(1.0) - 0.1 * batch_mean(
+                (entropy * w[:, None]).sum(), w.sum() * t)
         if "ds" in mode:
             p_s = enc["p_s"] + 1e-10
             target = batch["selection"] + 1e-10
             kl = (target * (torch.log(target) - torch.log(p_s))).sum(dim=-1)
-            losses["ds"] = (kl * w).sum() / w.sum().clamp_min(1.0)
+            losses["ds"] = batch_mean((kl * w).sum(), w.sum())
         return losses

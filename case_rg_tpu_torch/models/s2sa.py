@@ -11,6 +11,7 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
+from .base import batch_mean
 from .bbc import BBCCore, BBCEncoders
 
 
@@ -68,4 +69,4 @@ class S2SAModel(nn.Module):
         w = batch.get("sample_weight")
         w = torch.ones(b, device=resp.device) if w is None else w.float()
         tok_w = (resp != 0).float() * w[:, None]
-        return {"mle": -(logp * tok_w).sum() / tok_w.sum().clamp_min(1.0)}
+        return {"mle": -batch_mean((logp * tok_w).sum(), tok_w.sum())}

@@ -11,7 +11,8 @@ is written under a temporary name and renamed, so a crash mid-write leaves
 no half checkpoint for resume to find. ``latest.json`` and ``best.json``
 are the JSON pointers the JAX package writes; salvage checkpoints
 (``{epoch}.preempt``, ``{epoch}.mid``) and ``avg`` are written with
-``update_latest=False``.
+``update_latest=False``. In a process group (``runtime/mesh``) only rank 0
+writes, and every rank waits at a barrier until it has; every rank reads.
 
 ``load_checkpoint`` detects the format from what exists on disk, as the JAX
 package does. It also reads the JAX package's ``model/{epoch}.ckpt``: the
@@ -35,17 +36,12 @@ import numpy as np
 import torch
 
 from ..bridge import state_dict_from_jax
+from ..runtime import mesh
 
 # flax's msgpack extension types (flax/serialization.py, _MsgpackExtType)
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
 _CHUNKED = "__msgpack_chunked_array__"
-
-
-def _model_dir(output_path: str) -> str:
-    d = os.path.join(output_path, "model")
-    os.makedirs(d, exist_ok=True)
-    return d
 
 
 def _field(state, name, default=None):
@@ -79,17 +75,20 @@ def save_checkpoint(output_path: str, epoch, state: Any,
     the optimiser fields) to ``model/{epoch}.pt``; returns the path.
     ``update_latest=False`` writes a salvage checkpoint without marking the
     epoch complete for resume."""
-    d = _model_dir(output_path)
+    d = os.path.join(output_path, "model")
     path = os.path.join(d, f"{epoch}.pt")
-    tmp = path + ".tmp"
-    torch.save({"params": _cpu_state_dict(_field(state, "params")),
-                "ema": _cpu_state_dict(_field(state, "ema")),
-                "step": int(_field(state, "step")),
-                "opt_state": _opt_state(state)}, tmp)
-    os.replace(tmp, path)
-    if update_latest:
-        with open(os.path.join(d, "latest.json"), "w") as f:
-            json.dump({"epoch": epoch}, f)
+    if mesh.process_index() == 0:
+        os.makedirs(d, exist_ok=True)
+        tmp = path + ".tmp"
+        torch.save({"params": _cpu_state_dict(_field(state, "params")),
+                    "ema": _cpu_state_dict(_field(state, "ema")),
+                    "step": int(_field(state, "step")),
+                    "opt_state": _opt_state(state)}, tmp)
+        os.replace(tmp, path)
+        if update_latest:
+            with open(os.path.join(d, "latest.json"), "w") as f:
+                json.dump({"epoch": epoch}, f)
+    mesh.barrier()
     return path
 
 
@@ -106,9 +105,11 @@ def save_best(output_path: str, epoch: int, dev_total: float) -> None:
     the per-epoch dev loss improves; consumed by ``--epoch best`` at
     serving and ``run --mode test --best_only``)."""
     d = os.path.join(output_path, "model")
-    os.makedirs(d, exist_ok=True)
-    with open(os.path.join(d, "best.json"), "w") as f:
-        json.dump({"epoch": epoch, "dev_total": dev_total}, f)
+    if mesh.process_index() == 0:
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "best.json"), "w") as f:
+            json.dump({"epoch": epoch, "dev_total": dev_total}, f)
+    mesh.barrier()
 
 
 def best_epoch(output_path: str) -> Optional[int]:

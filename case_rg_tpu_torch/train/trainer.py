@@ -46,6 +46,38 @@ resume is bit-exact. The JAX loop instead splits one key chain from
 ``PRNGKey(seed)`` anew at ``start_epoch`` (``case_rg_tpu/train/trainer.py:
 273-281``), so its resumed epochs draw other masks than its unbroken ones;
 and its streams (threefry or rbg) cannot be matched by Philox anyway.
+
+Data parallelism (``runtime/mesh``, one process a card under torchrun; the
+JAX package's ``--multihost`` data axis). Every rank holds the whole state
+and a shard of each global batch (``Batcher`` with the rank and count,
+every rank padded to the same batch count):
+
+* the state is broadcast from rank 0 at ``init_state`` and after a
+  resume;
+* the step runs under ``mesh.global_batch``: each loss divides the rank's
+  numerator by the denominator summed over the ranks (one small all-reduce
+  a loss term), so the rank gradients summed over the ranks (one
+  all-reduce of one flat buffer, the losses riding in it) are the gradient
+  of the global batch's loss, as under the JAX package's sharded program;
+  the reported losses and ``grad_norm`` are the global batch's. The clip,
+  Adam and the EMA then run on the summed gradient on every rank, so the
+  ranks stay bit-identical (``mesh.check_replicas`` at every epoch's
+  checkpoint);
+* with ``accumulation_steps`` > 1 the gradient is reduced at every call
+  (each mini-step's global gradient, then the same running mean as one
+  process): the state moves exactly as one process's on the concatenated
+  batches of each mini-step;
+* each rank's dropout generator folds in its rank (``epoch_generator``),
+  so the ranks draw different masks and in-kernel seeds;
+* the ranks agree on a preemption at every batch boundary (``mesh.agree``:
+  a MAX of the flag over a gloo group of the host, which waits on no card
+  work, so the loop's "a host read only at log points" holds); a signal
+  seen by any rank stops every rank before the same step, and one
+  salvage checkpoint is written;
+* checkpoints and ``best.json`` are written by rank 0, behind a barrier;
+  ``eval_losses`` reduces its sums, so every rank sees one dev loss; the
+  logs and metrics come from rank 0;
+* ``predict`` runs per rank, on rows ``[rank::count]``.
 """
 
 from __future__ import annotations
@@ -66,6 +98,7 @@ from ..bridge import load_state
 from ..config import TrainConfig
 from ..data.batching import Batcher
 from ..device import batch_to_device, resolve_device
+from ..runtime import mesh
 from ..runtime.continuous.base import HostCopy
 from .checkpoint import (best_epoch_record, checkpoint_exists, latest_epoch,
                          load_checkpoint, save_best, save_checkpoint)
@@ -104,10 +137,14 @@ class TrainState:
     step: int = 0                      # effective (post-accumulation) steps
 
 
-def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
-    """The dropout generator of epoch ``epoch``: Philox (or the CPU's
-    generator) seeded from ``(seed, epoch)`` through numpy's SeedSequence."""
-    s = np.random.SeedSequence([seed, epoch]).generate_state(2, np.uint32)
+def epoch_generator(seed: int, epoch: int, device,
+                    rank: int = 0) -> torch.Generator:
+    """The dropout generator of epoch ``epoch`` on rank ``rank``: Philox
+    (or the CPU's generator) seeded from ``(seed, epoch, rank)`` through
+    numpy's SeedSequence, which ignores trailing zeros, so rank 0 (and one
+    process) draws from ``(seed, epoch)``'s stream."""
+    s = np.random.SeedSequence([seed, epoch, rank]).generate_state(
+        2, np.uint32)
     return torch.Generator(device=device).manual_seed(
         int(s[0]) << 32 | int(s[1]))
 
@@ -209,11 +246,23 @@ class Trainer:
         if train_cfg.remat not in REMAT_POLICIES:
             raise ValueError(f"remat {train_cfg.remat!r} not in "
                              f"{tuple(REMAT_POLICIES)}")
+        if train_cfg.pool_shard:
+            raise ValueError("pool_shard: the pool axis over a 'model' mesh "
+                             f"axis is not ported yet ({mesh.MODEL_AXIS_ITEM})")
+        if train_cfg.mesh_shape:
+            mesh.parse_mesh_shape(",".join(map(str, train_cfg.mesh_shape)))
+        self._dp = mesh.is_distributed()
+        self._main = mesh.process_index() == 0
+
+    def _log(self, msg: str) -> None:
+        if self._main:
+            print(msg, flush=True)
 
     def init_state(self) -> TrainState:
         """A fresh state over the model's current parameters: zero moments,
         EMA equal to the parameters."""
         params = dict(self.model.named_parameters())
+        mesh.broadcast(params.values())
         zeros = lambda: {k: torch.zeros_like(v) for k, v in params.items()}
         return TrainState(params=params, mu=zeros(), nu=zeros(),
                           ema={k: v.detach().clone()
@@ -277,17 +326,27 @@ class Trainer:
     def loss_and_grads(self, state: TrainState, batch,
                        gen: Optional[torch.Generator]):
         """(losses with "total", gradients of the total by parameter name)
-        at the state's parameters; nothing is updated."""
+        at the state's parameters; nothing is updated. In a process group:
+        the global batch's losses and gradients (summed over the ranks)."""
         batch = batch_to_device(_device_fields(batch), self.device)
-        if self.tc.remat:
-            losses = self._run_remat(state.params, batch, gen)
-        else:
-            losses = self._run(state.params, batch, gen, self._bf16)
-        total = sum(losses.values())
-        grads = torch.autograd.grad(total, list(state.params.values()),
-                                    allow_unused=True, materialize_grads=True)
+        with mesh.global_batch():     # the recompute under remat too
+            if self.tc.remat:
+                losses = self._run_remat(state.params, batch, gen)
+            else:
+                losses = self._run(state.params, batch, gen, self._bf16)
+            total = sum(losses.values())
+            grads = torch.autograd.grad(total, list(state.params.values()),
+                                        allow_unused=True,
+                                        materialize_grads=True)
         losses = {k: v.detach() for k, v in losses.items()}
-        losses["total"] = total.detach()
+        if not self._dp:
+            losses["total"] = total.detach()
+            return losses, dict(zip(state.params, grads))
+        names = list(losses)
+        *grads, vals = mesh.all_reduce_sum(
+            list(grads) + [torch.stack([losses[k] for k in names])])
+        losses = dict(zip(names, vals.unbind()))
+        losses["total"] = sum(losses.values())
         return losses, dict(zip(state.params, grads))
 
     @torch.no_grad()
@@ -366,6 +425,10 @@ class Trainer:
         with torch.profiler.record_function(f"checkpoint {tag}"):
             save_checkpoint(output_path, tag, state, update_latest)
 
+    def _state_tensors(self, state: TrainState):
+        return [t for part in (state.params, state.ema, state.mu, state.nu,
+                               state.acc or {}) for t in part.values()]
+
     def train_epoch(self, state: TrainState, batcher: Batcher, epoch: int,
                     gen: torch.Generator, metrics_logger=None,
                     output_path: str = "", checkpoint_every: int = 0,
@@ -383,13 +446,15 @@ class Trainer:
         meter = StepMeter()
         last_losses = {}
         for j, batch in enumerate(batcher.epoch(epoch)):
-            if guard is not None and guard.requested:
+            stop = guard is not None and (mesh.agree(guard.requested)
+                                          if self._dp else guard.requested)
+            if stop:
                 if output_path:
                     self._save(output_path, f"{epoch}.preempt", state,
                                update_latest=False)
-                    print(f"[train] preempted at epoch {epoch} batch {j}; "
-                          f"salvage checkpoint {epoch}.preempt written",
-                          flush=True)
+                    self._log(f"[train] preempted at epoch {epoch} batch "
+                              f"{j}; salvage checkpoint {epoch}.preempt "
+                              "written")
                 raise KeyboardInterrupt("preempted")
             meter.start()
             losses = self.train_step(state, batch, gen)
@@ -403,15 +468,14 @@ class Trainer:
             if j > 0 and j % self.tc.log_every == 0:
                 vals = {k: float(v) for k, v in losses.items()}
                 meter.stop()
-                print(f"[train] epoch {epoch} batch {j} loss {vals} "
-                      f"time {time.time() - start:.1f}s "
-                      f"({meter.steps_per_sec():.2f} steps/s)", flush=True)
+                self._log(f"[train] epoch {epoch} batch {j} loss {vals} "
+                          f"time {time.time() - start:.1f}s "
+                          f"({meter.steps_per_sec():.2f} steps/s)")
                 if metrics_logger is not None:
                     metrics_logger.log(state.step, vals)
         vals = {k: float(v) for k, v in last_losses.items()}
-        print(f"[train] epoch {epoch} done ({batcher.num_batches(epoch)} "
-              f"batches) loss {vals} time {time.time() - start:.1f}s",
-              flush=True)
+        self._log(f"[train] epoch {epoch} done ({batcher.num_batches(epoch)} "
+                  f"batches) loss {vals} time {time.time() - start:.1f}s")
         sys.stdout.flush()
         return state
 
@@ -432,15 +496,17 @@ class Trainer:
         whole loop under ``runtime.profiling.trace``."""
         from ..runtime.profiling import MetricsLogger, trace
 
-        batcher = Batcher(arrays, self.tc.batch_size, shuffle=True, seed=seed)
+        rank, count = mesh.process_index(), mesh.process_count()
+        batcher = Batcher(arrays, self.tc.batch_size, shuffle=True, seed=seed,
+                          process_index=rank, process_count=count)
         logger = MetricsLogger(os.path.join(output_path, "metrics.jsonl")
-                               if output_path else None)
+                               if output_path and self._main else None)
         best = best_epoch_record(output_path) if start_epoch else None
         stale = 0
         try:
             with trace(profile_dir), PreemptionGuard() as guard:
                 for epoch in range(start_epoch, epochs):
-                    gen = epoch_generator(seed, epoch, self.device)
+                    gen = epoch_generator(seed, epoch, self.device, rank)
                     with torch.profiler.record_function(f"train_epoch "
                                                         f"{epoch}"):
                         state = self.train_epoch(
@@ -449,12 +515,16 @@ class Trainer:
                             checkpoint_every=self.tc.checkpoint_every_steps,
                             guard=guard)
                     self._save(output_path, epoch, state)
+                    if self._dp:
+                        self._log(f"[train] epoch {epoch}: the {count} "
+                                  "replicas agree bit for bit (checksum "
+                                  f"{self.check_replicas(state)})")
                     if eval_arrays is None:
                         continue
                     with torch.profiler.record_function(f"dev_eval {epoch}"):
                         dev = self.eval_losses(state, eval_arrays)
                     vals = {k: round(v, 6) for k, v in dev.items()}
-                    print(f"[train] epoch {epoch} dev loss {vals}", flush=True)
+                    self._log(f"[train] epoch {epoch} dev loss {vals}")
                     logger.log(state.step,
                                {f"dev_{k}": v for k, v in dev.items()})
                     total = float(dev.get("total", next(iter(dev.values()))))
@@ -466,10 +536,10 @@ class Trainer:
                     else:
                         stale += 1
                         if early_stop and stale >= early_stop:
-                            print(f"[train] early stop after epoch {epoch}: "
-                                  f"no dev improvement for {early_stop} "
-                                  f"epochs (best epoch {best[1]}, dev "
-                                  f"{best[0]:.6f})", flush=True)
+                            self._log(f"[train] early stop after epoch "
+                                      f"{epoch}: no dev improvement for "
+                                      f"{early_stop} epochs (best epoch "
+                                      f"{best[1]}, dev {best[0]:.6f})")
                             break
         except KeyboardInterrupt:
             # preemption (or ctrl-c routed through the guard): the state was
@@ -478,21 +548,30 @@ class Trainer:
         logger.close()
         return state
 
+    def check_replicas(self, state: TrainState) -> int:
+        """``mesh.check_replicas`` over the whole state (parameters, EMA,
+        moments, the accumulated mean): raises unless every rank's is
+        bit-identical; returns its checksum."""
+        return mesh.check_replicas(self._state_tensors(state),
+                                   "train state")
+
     def resume_or_init(self, output_path: str):
         """(state, start_epoch): a fresh state over the model's parameters,
         or, with ``resume`` on and a completed epoch in ``latest.json``,
         that epoch's checkpoint restored and the next epoch to train. A
         latest pointer whose checkpoint is missing walks back to the newest
-        epoch that exists on disk."""
+        epoch that exists on disk. In a process group every rank reads the
+        checkpoint and rank 0's state is broadcast."""
         state = self.init_state()
         last = latest_epoch(output_path)
         if self.tc.resume and last is not None:
             while last >= 0 and not checkpoint_exists(output_path, last):
-                print(f"[train] checkpoint for epoch {last} missing; "
-                      "falling back", flush=True)
+                self._log(f"[train] checkpoint for epoch {last} missing; "
+                          "falling back")
                 last -= 1
             if last >= 0:
                 self.restore(state, load_checkpoint(output_path, last))
+                mesh.broadcast(self._state_tensors(state))
                 return state, last + 1
         return state, 0
 
@@ -505,17 +584,31 @@ class Trainer:
         losses weighted by each batch's real-sample count (``sample_weight``
         masks the padded final batch, and the losses weight by it too, so
         the mean is exact for per-sample-mean losses). Sums stay on the
-        device; the host reads them once."""
+        device; the host reads them once. In a process group each batch is
+        the global batch of the ranks' shards: its losses and real-sample
+        count are summed over the ranks (one small all-reduce a batch), so
+        every rank returns the same dev loss, the one process's over
+        batches of ``batch_size`` times the ranks."""
         bs = batch_size or self.tc.batch_size
         totals: Dict[str, torch.Tensor] = {}
         weight = 0.0
-        for batch in Batcher(arrays, bs, shuffle=False).epoch(0):
+        for batch in Batcher(arrays, bs, shuffle=False,
+                             process_index=mesh.process_index(),
+                             process_count=mesh.process_count()).epoch(0):
             w = float(batch["sample_weight"].sum())
-            losses = self.eval_batch(state, batch, ema=ema_eval)
+            with mesh.global_batch():
+                losses = self.eval_batch(state, batch, ema=ema_eval)
             losses.pop("total")
+            if self._dp:
+                names = list(losses)
+                vec = torch.stack([losses[k] for k in names]
+                                  + [torch.tensor(w, device=self.device)])
+                *vals, w = mesh.all_reduce_sum([vec])[0].double().unbind()
+                losses = dict(zip(names, vals))
             for k, v in losses.items():
                 totals[k] = totals.get(k, 0.0) + v.double() * w
             weight += w
+        weight = float(weight)
         out = {k: float(v) / max(weight, 1.0) for k, v in totals.items()}
         out["total"] = sum(out.values())
         return out
@@ -536,9 +629,12 @@ def predict(arrays: Dict[str, np.ndarray],
     method takes them from a train state. Up to ``pipeline_depth`` batches
     are in flight: each batch's outputs start their copy into pinned host
     memory at dispatch (``HostCopy``) and are read ``pipeline_depth``
-    batches later, as ``cli/serve`` fetches them."""
+    batches later, as ``cli/serve`` fetches them. In a process group each
+    rank predicts its own rows, ``[rank::count]``."""
     inflight: deque = deque()
-    for batch in Batcher(arrays, batch_size, shuffle=False).epoch(0):
+    for batch in Batcher(arrays, batch_size, shuffle=False,
+                         process_index=mesh.process_index(),
+                         process_count=mesh.process_count()).epoch(0):
         out = predict_fn(_device_fields(batch))
         keys = list(out)
         inflight.append((batch, keys, HostCopy([out[k] for k in keys])))

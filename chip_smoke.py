@@ -148,12 +148,16 @@ In order it
      train / dev / test queries in topics of 8 turns, 3000 passages of
      60-150 words from phase 11's 30522-wordpiece vocabulary, pools of 100
      candidates), runs ``cli/prepare`` on them in a process of its own
-     (``--vocab_file``, ``--workers 3``), then ``cli/run --mode train
-     --bf16_train --checkpoint_every_steps 3`` (B=64, dropout 0.1) in a
-     subprocess that it sends SIGTERM once epoch 1's first mid-epoch
-     checkpoint is on disk (exit 0, ``1.preempt.pt`` written, ``0.mid.pt``
-     and ``1.mid.pt`` too, ``latest.json`` still at epoch 0), and in
-     process resumes it (the
+     (``--vocab_file``, ``--workers 3``), then ``cli/run --multihost
+     --mode train --bf16_train --checkpoint_every_steps 3`` (B=64,
+     dropout 0.1) under torchrun, a world of one over NCCL, whose rank it
+     sends SIGTERM once epoch 1's first mid-epoch checkpoint is on disk
+     (exit 0, ``1.preempt.pt`` written, ``0.mid.pt`` and ``1.mid.pt`` too,
+     ``latest.json`` still at epoch 0); epoch 0 of it must equal the same
+     cli/run without ``--multihost`` in process (stopped at epoch 1's
+     first boundary) bit for bit: the checkpoint, the epoch's last losses,
+     the dev loss (phase 13b); in process it
+     resumes the run (the
      restored parameters, EMA, Adam moments and counts equal epoch 0's
      checkpoint bit for bit) for epochs 1-3 with every step under
      no_host_sync, one more epoch with ``--no-kernel_rng_dropout`` and one
@@ -163,7 +167,9 @@ In order it
      mean loss below the first's, ``best.json`` at the lowest dev total.
      ``--mode avg`` must write the mean of the last three epochs;
      ``--mode test --bf16_eval`` over every epoch and ``--avg_only`` must
-     write what ``make_predict_fn`` on the prepared batches gives, the
+     write what ``make_predict_fn`` on the prepared batches gives (and
+     ``--multihost`` in process, a world of one over NCCL, epoch 0's files
+     byte for byte), the
      average through ``--continuous --fast_argmax pallas`` what
      ``run_continuous`` driven directly gives, and through ``--device_loop
      8 --chunk_steps 4 --lookahead`` what the chunk loop gave;
@@ -174,6 +180,22 @@ In order it
      checkpoint write and load seconds and bytes, the batch's
      host-to-device copy from pageable and from pinned memory, test
      samples/s and the phase's seconds;
+13b. data-parallel training and testing ("data-parallel training and
+     testing", on phase 13's raw files, which are removed after it): two
+     ranks of ``cli/run --multihost`` under torchrun (NCCL with two cards;
+     on one card gloo, if a gloo world of one takes CUDA tensors here, else
+     the phase says why and runs phase 13's world of one alone). Training,
+     one epoch at B=64 a rank (global batch 128), bf16, profiled: the
+     epoch's last losses within FIRST_LOSS_RTOL (and whether bit for bit)
+     of one process stepping as the group does
+     (``dp_emulate``: each rank's batch through its own generator, the
+     denominators summed, the gradients summed, no collective), the
+     replicas bit-identical (the trainer's checksum at the checkpoint),
+     the dev loss within 1e-5 of one process's at B=128 on the same
+     checkpoint; testing with ``--bf16_eval``: the ranks' shards merged
+     hold one process's lines. Prints, for one rank, ms a step with and
+     without the collectives, the collectives' ms, device busy ms and idle
+     share, the training kernels' launches, and the reduced bytes a step;
  14. serves and trains the other five models ("other models"): Masque,
      S2SA, GTTP, GLKS and TMemNet, each at the serving widths (V=30522,
      E = H = 256, 8 heads; Masque 3 encoder and 2x4 decoder layers,
@@ -197,7 +219,8 @@ In order it
      a ring of 256, lookahead; equal to the chunk loop token for token,
      launches reckoned from the capture); (e) bf16 training over f32
      masters: the first step's loss and gradient against the plain
-     versions, 6 steps on one batch (the loss without dropout must fall;
+     versions, 3 steps on one batch, GLKS 6 (the loss without dropout must
+     fall;
      the training attention's and additive_scores' launches counted), one
      step under no_host_sync. A line per model, then the phase's summary;
  15. exports and routes ("export and multi-model serving"): (a)
@@ -3116,14 +3139,35 @@ def raw_corpus(base, words, pieces):
             "words": sum(len(t.split()) for t in passages.values())}
 
 
-def same_result_files(got_dir, want_dir, what):
-    """Every .answer/.run of ``want_dir`` in ``got_dir``: answers byte for
-    byte; runs byte for byte, or the same passages in the same order but for
-    positions whose scores lie within 1e-5 of a neighbour (compared as
-    sets), scores within 1e-5."""
-    names = sorted(os.listdir(want_dir))
-    check(names and sorted(os.listdir(got_dir)) == names,
-          f"{what}: files {sorted(os.listdir(got_dir))} vs {names}")
+def same_run_lines(g, w, what) -> int:
+    """Run lines (split on spaces) ``g`` against ``w``: the same passages
+    in the same order but for positions whose scores lie within 1e-5 of a
+    neighbour (compared as sets), scores within 1e-5. Returns the ties."""
+    check(len(g) == len(w), f"{what}: {len(g)} lines, not {len(w)}")
+    ties, i = 0, 0
+    while i < len(w):
+        j = i + 1
+        while j < len(w) and w[j][0] == w[i][0] and \
+                abs(float(w[j][4]) - float(w[j - 1][4])) < 1e-5:
+            j += 1
+        ties += j - i > 1
+        check(sorted(x[2] for x in g[i:j]) == sorted(x[2] for x in w[i:j])
+              and all(a[0] == b[0] and a[3] == b[3]
+                      and abs(float(a[4]) - float(b[4])) <= 1e-5
+                      for a, b in zip(g[i:j], w[i:j])),
+              f"{what}: line {i}: {g[i:j]} vs {w[i:j]}")
+        i = j
+    return ties
+
+
+def same_result_files(got_dir, want_dir, what, names=None):
+    """Every .answer/.run of ``want_dir`` (or those of ``names``) in
+    ``got_dir``: answers byte for byte; runs byte for byte or as
+    ``same_run_lines`` holds them."""
+    if names is None:
+        names = sorted(os.listdir(want_dir))
+        check(names and sorted(os.listdir(got_dir)) == names,
+              f"{what}: files {sorted(os.listdir(got_dir))} vs {names}")
     ties = 0
     for name in names:
         with open(os.path.join(want_dir, name)) as f:
@@ -3133,23 +3177,9 @@ def same_result_files(got_dir, want_dir, what):
         if got == want:
             continue
         check(name.endswith(".run"), f"{what}: {name} differs")
-        g = [ln.split(" ") for ln in got.splitlines()]
-        w = [ln.split(" ") for ln in want.splitlines()]
-        check(len(g) == len(w), f"{what}: {name} has {len(g)} lines")
-        i = 0
-        while i < len(w):
-            j = i + 1
-            while j < len(w) and w[j][0] == w[i][0] and \
-                    abs(float(w[j][4]) - float(w[j - 1][4])) < 1e-5:
-                j += 1
-            ties += j - i > 1
-            check(sorted(x[2] for x in g[i:j]) == sorted(x[2] for x in
-                                                         w[i:j])
-                  and all(a[0] == b[0] and a[3] == b[3]
-                          and abs(float(a[4]) - float(b[4])) <= 1e-5
-                          for a, b in zip(g[i:j], w[i:j])),
-                  f"{what}: {name} line {i}: {g[i:j]} vs {w[i:j]}")
-            i = j
+        ties += same_run_lines([ln.split(" ") for ln in got.splitlines()],
+                               [ln.split(" ") for ln in want.splitlines()],
+                               f"{what}: {name}")
     return ties
 
 
@@ -3246,15 +3276,16 @@ def raw_files(dev, bare_ms):
                            "--learning_rate", str(RAW_LR), "--warmup_steps",
                            str(RAW_WARMUP)]
 
-    # 2a. train in a subprocess with mid-epoch checkpoints every
-    # RAW_MID_EVERY steps; SIGTERM once epoch 1's first one is on disk (the
-    # host runs ahead of the card, so a timer cannot place the signal)
+    # 2a. train under torchrun, a world of one over NCCL (cli/run
+    # --multihost; phase 13b holds it to one process), with mid-epoch
+    # checkpoints every RAW_MID_EVERY steps; SIGTERM to the rank once epoch
+    # 1's first one is on disk (the host runs ahead of the card, so a timer
+    # cannot place the signal)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    mid_args = ["--checkpoint_every_steps", str(RAW_MID_EVERY)]
     proc = subprocess.Popen(
-        [sys.executable, "-u", "-m", "case_rg_tpu_torch.cli.run"]
-        + train_args + ["--epoch", str(RAW_RESUME_TO),
-                        "--checkpoint_every_steps", str(RAW_MID_EVERY)],
+        torchrun(1, train_args + ["--epoch", str(RAW_RESUME_TO)] + mid_args),
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True)
     log = []
@@ -3265,7 +3296,8 @@ def raw_files(dev, bare_ms):
             if line.startswith("[train] epoch 0 dev loss"):
                 while proc.poll() is None and not os.path.exists(mid):
                     time.sleep(0.01)
-                proc.send_signal(signal.SIGTERM)
+                for pid in rank_pids(proc.pid):
+                    os.kill(pid, signal.SIGTERM)
         rc = proc.wait(timeout=600)
     finally:
         if proc.poll() is None:
@@ -3287,6 +3319,9 @@ def raw_files(dev, bare_ms):
                           r"epoch 0 done .* loss (\{[^}]*\})", text).group(1)}
     for tag in ("1.preempt", "0.mid", "1.mid"):
         os.remove(os.path.join(out, "model", f"{tag}.pt"))
+    res["world_of_one"] = world_of_one_train(
+        cli_run, train_args + ["--epoch", str(RAW_RESUME_TO)] + mid_args, out,
+        text)
 
     # 2b. resumed in process, instrumented: the restored state against
     # epoch 0's checkpoint bit for bit; each step under no_host_sync; epoch
@@ -3482,6 +3517,7 @@ def raw_files(dev, bare_ms):
 
     test_run("batched_every_epoch", ["--epoch", str(RAW_EPOCHS)])
     test_run("batched_avg", ["--avg_only"])
+    res["world_of_one"]["test"] = world_of_one_test(cli_run, test_args, out)
     cont_out, loop_out = (os.path.join(RAW_DIR, n) for n in ("cont", "loop"))
     for d in (cont_out, loop_out):
         os.makedirs(d)
@@ -3561,8 +3597,546 @@ def raw_files(dev, bare_ms):
     print("raw files test and evaluate: " + json.dumps(
         {k: res[k] for k in ("test", "avg_s", "evaluate_s", "evaluate")}),
         flush=True)
-    shutil.rmtree(RAW_DIR, ignore_errors=True)
-    res["phase_s"] = time.perf_counter() - t_phase
+    res["phase_s"] = time.perf_counter() - t_phase    # RAW_DIR stays for
+    return res                                        # phase 13b
+
+
+# ---- phase 13b: data-parallel training and testing (runtime/mesh) ----
+
+DP_RANKS = 2
+# torch's own matmul settings, read in main() before it turns the
+# reduced-precision bf16 reductions off for the plain versions' products;
+# the ranks torchrun starts keep them, so the in-process references that
+# are held to a rank's results bit for bit run under them (torch_defaults)
+TORCH_DEFAULTS = {}
+
+
+def read_torch_defaults() -> None:
+    m = torch.backends.cuda.matmul
+    TORCH_DEFAULTS.update(
+        tf32=m.allow_tf32, cudnn_tf32=torch.backends.cudnn.allow_tf32,
+        bf16_reduction=m.allow_bf16_reduced_precision_reduction)
+
+
+@contextlib.contextmanager
+def torch_defaults():
+    m = torch.backends.cuda.matmul
+    saved = (m.allow_tf32, torch.backends.cudnn.allow_tf32,
+             m.allow_bf16_reduced_precision_reduction)
+    m.allow_tf32 = TORCH_DEFAULTS["tf32"]
+    torch.backends.cudnn.allow_tf32 = TORCH_DEFAULTS["cudnn_tf32"]
+    m.allow_bf16_reduced_precision_reduction = \
+        TORCH_DEFAULTS["bf16_reduction"]
+    try:
+        yield
+    finally:
+        (m.allow_tf32, torch.backends.cudnn.allow_tf32,
+         m.allow_bf16_reduced_precision_reduction) = saved
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def torchrun(nproc: int, argv):
+    """The command that starts ``nproc`` ranks of ``python -m
+    case_rg_tpu_torch.cli.run --multihost *argv`` under torchrun on a free
+    local port."""
+    return [sys.executable, "-u", "-m", "torch.distributed.run",
+            "--nproc_per_node", str(nproc), "--master_addr", "127.0.0.1",
+            "--master_port", str(free_port()), "-m",
+            "case_rg_tpu_torch.cli.run", "--multihost"] + list(argv)
+
+
+def rank_pids(agent: int):
+    """The rank processes torchrun's agent ``agent`` started (its children
+    running cli/run, read from /proc)."""
+    out = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read()
+        except (OSError, ValueError, IndexError):
+            continue
+        if ppid == agent and b"case_rg_tpu_torch.cli.run" in cmd:
+            out.append(int(d))
+    check(len(out) == 1, f"torchrun {agent}: rank processes {out}")
+    return out
+
+
+@contextlib.contextmanager
+def torchrun_env(port: int):
+    """torchrun's environment for a world of one in this process."""
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def same_checkpoint(got, want) -> bool:
+    """Two checkpoints equal bit for bit: parameters, EMA, Adam moments,
+    counts and step."""
+    go, wo = got["opt_state"], want["opt_state"]
+    return (got["step"] == want["step"]
+            and (go["count"], go["mini_step"]) == (wo["count"],
+                                                   wo["mini_step"])
+            and all(sorted(a) == sorted(b)
+                    and all(torch.equal(a[k], b[k]) for k in b)
+                    for a, b in ((got["params"], want["params"]),
+                                 (got["ema"], want["ema"]),
+                                 (go["mu"], wo["mu"]), (go["nu"], wo["nu"]))))
+
+
+def logged_losses(text, epoch=0):
+    """{batch: losses} of the "[train] epoch E batch j loss {...}" lines of
+    a training log, the "epoch E done" line's as its last batch."""
+    import ast
+    import re
+    out = {int(m.group(1)): ast.literal_eval(m.group(2)) for m in
+           re.finditer(rf"\[train\] epoch {epoch} batch (\d+) loss "
+                       r"(\{[^}]*\})", text)}
+    done = re.search(rf"epoch {epoch} done \((\d+) batches\) loss "
+                     r"(\{[^}]*\})", text)
+    check(done is not None, f"no end of epoch {epoch} in {text[-1500:]}")
+    out[int(done.group(1)) - 1] = ast.literal_eval(done.group(2))
+    return out
+
+
+def rel_diff(a: dict, b: dict) -> float:
+    """The largest relative difference between two dicts of numbers."""
+    check(sorted(a) == sorted(b), f"keys {sorted(a)} vs {sorted(b)}")
+    return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for k in b)
+
+
+def run_drift(got, want):
+    """How far a training run (output dir, log) is from another of the
+    same steps: each logged step of epoch 0's largest relative loss
+    difference, the epoch's dev loss's, the relative L2 distance of the
+    epoch-0 parameters and EMA, counts equal, and whether the epoch-0
+    checkpoints are equal bit for bit."""
+    from case_rg_tpu_torch.train.checkpoint import load_checkpoint
+    (g_out, g_log), (w_out, w_log) = got, want
+    g_steps, w_steps = logged_losses(g_log), logged_losses(w_log)
+    check(sorted(g_steps) == sorted(w_steps),
+          f"logged steps {sorted(g_steps)} vs {sorted(w_steps)}")
+
+    def dev0(path):
+        with open(os.path.join(path, "metrics.jsonl")) as f:
+            row = [json.loads(x) for x in f if "dev_total" in x][0]
+        return {k: v for k, v in row.items() if k.startswith("dev_")}
+
+    gc, wc = load_checkpoint(g_out, 0), load_checkpoint(w_out, 0)
+
+    def l2(part):
+        num = sum(float((gc[part][k].double() - v.double()).square().sum())
+                  for k, v in wc[part].items())
+        den = sum(float(v.double().square().sum()) for v in wc[part].values())
+        return (num / den) ** 0.5
+
+    return {"step_losses_rel": {j: rel_diff(g_steps[j], w_steps[j])
+                                for j in sorted(w_steps)},
+            "dev_rel": rel_diff(dev0(g_out), dev0(w_out)),
+            "params_rel_l2": l2("params"), "ema_rel_l2": l2("ema"),
+            "counts_equal": (gc["step"], gc["opt_state"]["count"]) == (
+                wc["step"], wc["opt_state"]["count"]),
+            "checkpoint_bit_equal": same_checkpoint(gc, wc)}
+
+
+def world_of_one_train(cli_run, train_args, out, text):
+    """Phase 13b (1), training: epoch 0 of phase 13's torchrun world of one
+    (``text``, its log; ``out``, its output; ``train_args`` its arguments,
+    with its --epoch, which sets the learning-rate schedule) against the
+    same cli/run in this process without --multihost, under torch's
+    default matmul settings, stopped before epoch 1: the epoch-0
+    checkpoint, the epoch's last losses and the dev loss equal bit for bit;
+    both epochs' host seconds."""
+    import io
+    import re
+    import shutil
+    from case_rg_tpu_torch.train import trainer as trainer_mod
+    ref = os.path.join(RAW_DIR, "one_process")
+    T = trainer_mod.Trainer
+    orig = T.train_epoch
+
+    def stop_after_epoch_0(self, state, batcher, epoch, gen, **kw):
+        if epoch > 0:
+            raise KeyboardInterrupt("epoch 0 only")   # fit returns
+        return orig(self, state, batcher, epoch, gen, **kw)
+
+    t0 = time.perf_counter()
+    log = io.StringIO()
+    T.train_epoch = stop_after_epoch_0
+    try:
+        with torch_defaults(), contextlib.redirect_stdout(log):
+            auto_routing()
+            cli_run.main([x if x != out else ref for x in train_args])
+    finally:
+        T.train_epoch = orig
+    def epoch0_s(t):      # the epoch's host seconds that train_epoch logs
+        return float(re.search(r"epoch 0 done .* time ([0-9.]+)s",
+                               t).group(1))
+
+    res = {"backend": "nccl", "one_process_s": time.perf_counter() - t0,
+           "epoch0_s": {"world_of_one": epoch0_s(text),
+                        "one_process": epoch0_s(log.getvalue())},
+           **run_drift((out, text), (ref, log.getvalue()))}
+    check(res["checkpoint_bit_equal"] and res["counts_equal"]
+          and max(res["step_losses_rel"].values()) == 0.0
+          and res["dev_rel"] == 0.0,
+          f"world of one vs one process: {res}")
+    shutil.rmtree(ref, ignore_errors=True)
+    return res
+
+
+def world_of_one_test(cli_run, test_args, out):
+    """Phase 13b (1), testing: cli/run --mode test --multihost --epoch 1 in
+    this process, a world of one over NCCL (torchrun's environment set
+    here), on phase 13's epoch-0 checkpoint: its result files equal phase
+    13's --mode test of that epoch without --multihost (answers byte for
+    byte, runs as ``same_run_lines`` holds them); the serving kernels'
+    launches, their counters set to 0 just before and read just after,
+    each above 0."""
+    from case_rg_tpu_torch.kernels import additive_attention as aa
+    from case_rg_tpu_torch.kernels import decode_attention as da
+    from case_rg_tpu_torch.kernels import decoder_stack as ds
+    from case_rg_tpu_torch.kernels import encoder_attention as ea
+    from case_rg_tpu_torch.runtime import mesh
+    one = os.path.join(RAW_DIR, "world_of_one")
+    os.makedirs(one)
+    os.symlink(os.path.join(out, "model"), os.path.join(one, "model"))
+    t0 = time.perf_counter()
+    with torchrun_env(free_port()):
+        torch.cuda.synchronize()
+        ea.LAUNCHES = ds.LAUNCHES = da.LAUNCHES = aa.LAUNCHES = 0
+        cli_run.main([x if x != out else one for x in test_args]
+                     + ["--multihost", "--epoch", "1"])
+        launches = {"fused_mha": ea.LAUNCHES, "stack_step": ds.LAUNCHES,
+                    "single_query_mha": da.LAUNCHES,
+                    "additive_scores": aa.LAUNCHES}
+    secs = time.perf_counter() - t0
+    check(all(launches.values()), f"world of one test: launches {launches}")
+    check(not mesh.is_distributed(), "world of one: the group was not left")
+    names = sorted(os.listdir(os.path.join(one, "result")))
+    check(names == sorted(f"cast_{s}_0.0.{k}" for s in ("dev", "test")
+                          for k in ("answer", "run")),
+          f"world of one test: files {names}")
+    ties = same_result_files(os.path.join(one, "result"),
+                             os.path.join(out, "result"),
+                             "world of one test", names)
+    return {"files_equal": len(names), "near_ties": ties, "s": secs,
+            "launches": launches}
+
+
+def gloo_cuda_probe():
+    """Whether gloo's all-reduce and broadcast take CUDA tensors in this
+    torch: a gloo world of one in this process."""
+    import torch.distributed as dist
+    with torchrun_env(free_port()):
+        try:
+            dist.init_process_group("gloo", init_method="env://")
+            try:
+                x = torch.arange(4.0, device="cuda")
+                dist.all_reduce(x)
+                dist.broadcast(x, 0)
+                ok = bool(torch.equal(x.cpu(), torch.arange(4.0)))
+                return {"ok": ok, "why": "" if ok else "wrong sum"}
+            finally:
+                dist.destroy_process_group()
+        except Exception as e:    # noqa: BLE001 - the answer is the reason
+            return {"ok": False, "why": f"{type(e).__name__}: {e}"[:300]}
+
+
+def dp_emulate(trainer, state, rank_batches, gens):
+    """One process stepping as a group of len(gens) ranks steps: each rank's
+    batch through its own dropout generator, each loss divided by its
+    denominator summed over the ranks (read from a pass without dropout),
+    the rank gradients summed, then the optimiser. No collective runs: the
+    group's loss normalisation and step, computed another way (CaSE's
+    losses have no constant term, so ``rank_share`` is not needed). Returns
+    the losses (with grad_norm) of each step."""
+    from case_rg_tpu_torch.device import batch_to_device
+    from case_rg_tpu_torch.models import base
+    from case_rg_tpu_torch.train.trainer import _device_fields
+    saved = base.batch_denominator
+    steps = []
+    try:
+        for batches in zip(*rank_batches):
+            on = [batch_to_device(_device_fields(b), trainer.device)
+                  for b in batches]
+            dens = []
+            for b in on:
+                rec = []
+                base.batch_denominator = \
+                    lambda d, rec=rec: rec.append(d.detach().float()) or d
+                with torch.no_grad():     # f32: the counts are the same
+                    trainer._run(state.params, b, None, False)
+                dens.append(rec)
+            total = [sum(ds) for ds in zip(*dens)]
+            grads, losses = None, {}
+            for b, gen in zip(on, gens):
+                it = iter(total)
+                base.batch_denominator = lambda d, it=it: next(it)
+                part = trainer._run(state.params, b, gen, trainer._bf16)
+                g = torch.autograd.grad(sum(part.values()),
+                                        list(state.params.values()),
+                                        allow_unused=True,
+                                        materialize_grads=True)
+                grads = g if grads is None else [x + y for x, y in
+                                                 zip(grads, g)]
+                for k, v in part.items():
+                    losses[k] = losses[k] + v.detach() if k in losses \
+                        else v.detach()
+            losses["total"] = sum(losses.values())
+            losses["grad_norm"] = trainer.apply_gradients(
+                state, dict(zip(state.params, grads)))
+            steps.append({k: float(v) for k, v in losses.items()})
+    finally:
+        base.batch_denominator = saved
+    return steps
+
+
+COLLECTIVE_OPS = ("c10d", "gloo", "nccl", "all_reduce", "allreduce",
+                  "broadcast", "barrier")
+
+
+def rank_profile(trace_dir, steps):
+    """One rank's numbers (the ranks run the same steps; a trace takes
+    seconds to read), from the Chrome trace its --profile_dir wrote: the
+    "train_epoch 0" span's wall ms, device busy ms and idle share, the ms
+    of its collectives (the union of the host's spans of the process
+    group's operations, COLLECTIVE_OPS, on any thread; NCCL's kernels on
+    the card), ms a step with and without them, the collective operations
+    seen, and the training kernels' launches."""
+    import re
+    name = sorted(os.listdir(trace_dir))[0]
+    with open(os.path.join(trace_dir, name)) as f:
+        events = json.load(f)["traceEvents"]
+    (span,) = [e for e in events if e.get("name") == "train_epoch 0"
+               and e.get("cat") == "user_annotation"]
+    t0, t1 = span["ts"], span["ts"] + span["dur"]
+    inside = [e for e in events if t0 <= e.get("ts", -1) < t1 and "dur" in e]
+    busy = sum(e["dur"] for e in inside if e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")) / 1e3
+    coll = [e for e in inside if e.get("cat") in ("cpu_op", "user_annotation")
+            and any(k in e["name"].lower() for k in COLLECTIVE_OPS)]
+    ops = {}
+    for e in coll:
+        n, ms = ops.get(e["name"], (0, 0.0))
+        ops[e["name"]] = (n + 1, ms + e["dur"] / 1e3)
+    union, end = 0.0, -1.0
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in coll):
+        if b > end:
+            union += b - max(a, end)
+            end = b
+    coll_host = union / 1e3
+    coll_dev = sum(e["dur"] for e in inside if e.get("cat") == "kernel"
+                   and "nccl" in e["name"].lower()) / 1e3
+    launches = {}
+    for key, names in (("train_attention_fwd", ("fwd_short", "fwd_long")),
+                       ("train_attention_bwd", ("bwd_tile", "bwd_rows")),
+                       ("additive_fwd", ("fwd_kernel",)),
+                       ("additive_bwd", ("bwd_kernel",))):
+        pat = re.compile(r"(^|[ :])(" + "|".join(names) + r")[<(]")
+        launches[key] = sum(1 for e in inside if e.get("cat") == "kernel"
+                            and pat.search(e["name"]))
+    wall = span["dur"] / 1e3
+    coll_ms = max(coll_host, coll_dev)
+    return {"trace_mb": os.path.getsize(os.path.join(trace_dir, name)) / 1e6,
+            "wall_ms": wall, "steps": steps, "ms_per_step": wall / steps,
+            "ms_per_step_without_collectives": (wall - coll_ms) / steps,
+            "collective_ms_per_step": coll_ms / steps,
+            "collective_host_ms": coll_host,
+            "collective_device_ms": coll_dev,
+            "collective_ops": {k: [n, ms] for k, (n, ms) in
+                               sorted(ops.items())},
+            "device_busy_ms": busy, "device_idle_share": 1 - busy / wall,
+            "kernel_launches": launches}
+
+
+def by_query(lines):
+    """Run lines split on spaces, grouped by query id in their order."""
+    out = {}
+    for ln in lines:
+        fields = ln.split(" ")
+        out.setdefault(fields[0], []).append(fields)
+    return out
+
+
+def data_parallel(dev, card):
+    """Phase 13b (2): two ranks through cli/run --multihost under torchrun on
+    phase 13's raw files (NCCL over two cards, or gloo on one shared card
+    where gloo takes CUDA tensors). Training (one epoch, B=64 a rank, bf16,
+    profiled): the epoch's last losses against ``dp_emulate`` in this
+    process, its parameters against the group's checkpoint, the replicas
+    bit-identical (the
+    trainer's check at the checkpoint), the dev loss against one process's
+    at B=128 on the same checkpoint. Testing (--bf16_eval): the ranks'
+    result files merged equal one process's. Prints ms a step with and
+    without the collectives, the reduced bytes a step, the all-reduce's
+    ms, device busy and idle share."""
+    import re
+    from case_rg_tpu_torch.cli import run as cli_run
+    from case_rg_tpu_torch.config import TrainConfig
+    from case_rg_tpu_torch.data.batching import Batcher
+    from case_rg_tpu_torch.data.prepare import load_prepared
+    from case_rg_tpu_torch.models import create_model
+    from case_rg_tpu_torch.runtime.io import merge_shards
+    from case_rg_tpu_torch.train.checkpoint import load_checkpoint
+    from case_rg_tpu_torch.train.trainer import Trainer, epoch_generator
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    probe = gloo_cuda_probe()
+    backend = "nccl" if cards >= DP_RANKS else ("gloo" if probe["ok"]
+                                                  else None)
+    res = {"card": card, "cards": cards, "gloo_takes_cuda": probe,
+           "backend": backend}
+    if backend is None:
+        res["ran"] = False
+        res["why"] = (f"{cards} card(s), and gloo does not take CUDA "
+                      f"tensors here: {probe['why']}")
+        print("data-parallel two ranks: not run: " + res["why"], flush=True)
+        return res
+    out = os.path.join(RAW_DIR, "dp2")
+    trace_dir = os.path.join(RAW_DIR, "dp2_trace")
+    common = ["--model", "case", "--data_path", RAW_DIR, "--dataset", "cast",
+              "--batch_size", str(B), "--output_path", out]
+    train_args = common + ["--mode", "train", "--bf16_train",
+                           "--learning_rate", str(RAW_LR), "--warmup_steps",
+                           str(RAW_WARMUP), "--epoch", "1",
+                           "--profile_dir", trace_dir]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(torchrun(DP_RANKS, train_args), cwd=ROOT,
+                          capture_output=True, text=True, timeout=900)
+    res["train_launch_s"] = time.perf_counter() - t0
+    text = proc.stdout
+    check(proc.returncode == 0, f"two ranks train: exit {proc.returncode}: "
+          f"{text[-1500:]} {proc.stderr[-2500:]}")
+    logged = logged_losses(text)
+    steps = max(logged) + 1
+    agree = re.search(r"the 2 replicas agree bit for bit \(checksum (-?\d+)",
+                      text)
+    check(agree is not None, f"two ranks train: log {text[-2000:]}")
+
+    # the same steps in this process (dp_emulate), from the CLI's model
+    prep = os.path.join(RAW_DIR, "cast", "prepared")
+    arrays = load_prepared(prep, "train", "case")[0]
+    args = cli_run.build_parser().parse_args(train_args)
+    _, _, _, vocab, mcfg = cli_run.setup(args, need_train=False)
+    n = len(arrays["id"])
+    model = create_model("case", mcfg, device=dev, seed=args.seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    tc = TrainConfig(batch_size=B, epochs=1, learning_rate=RAW_LR,
+                     warmup_steps=RAW_WARMUP, seed=args.seed,
+                     compute_dtype="bfloat16")
+    trainer = Trainer(model, tc, int(n / B) + 100, device=dev)
+    state = trainer.init_state()
+    batches = [list(Batcher(arrays, B, shuffle=True, seed=args.seed,
+                            process_index=r, process_count=DP_RANKS)
+                    .epoch(0)) for r in range(DP_RANKS)]
+    gens = [epoch_generator(args.seed, 0, dev, r) for r in range(DP_RANKS)]
+    args.mode = "train"
+    try:
+        with torch_defaults():
+            cli_run.set_switches(args)
+            emulated = dp_emulate(trainer, state, batches, gens)
+    finally:
+        auto_routing()
+    check(len(batches[0]) == steps, f"two ranks: {steps} steps logged, "
+          f"{len(batches[0])} batches a rank")
+    rel = {j: rel_diff(logged[j], emulated[j]) for j in sorted(logged)}
+    exact = {j: logged[j] == emulated[j] for j in sorted(logged)}
+    check(max(rel.values()) <= FIRST_LOSS_RTOL,
+          f"two ranks: step losses vs one process emulating the group: "
+          f"{rel} {logged} {emulated}")
+    ck = load_checkpoint(out, 0)
+    p_diff = max(float((ck["params"][k].to(dev) - v.detach()).abs().max())
+                 for k, v in state.params.items())
+
+    # the dev loss: one process at B=128 on the group's checkpoint, f32
+    dev_arrays = load_prepared(prep, "dev", "case")[0]
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            p.copy_(ck["params"][k])
+    one_dev = trainer.eval_losses(trainer.init_state(), dev_arrays,
+                                  batch_size=DP_RANKS * B)
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        dp_dev = [json.loads(x) for x in f if "dev_total" in x][0]
+    dev_rel = abs(dp_dev["dev_total"] - one_dev["total"]) / abs(
+        one_dev["total"])
+    check(dev_rel <= 1e-5, f"two ranks: dev loss {dp_dev} vs one process "
+          f"{one_dev}")
+    del model, trainer, state, ck
+    torch.cuda.empty_cache()
+
+    # testing: the ranks' shards merged against one process
+    t0 = time.perf_counter()
+    test_args = common + ["--mode", "test", "--bf16_eval", "--epoch", "1"]
+    proc = subprocess.run(torchrun(DP_RANKS, test_args), cwd=ROOT,
+                          capture_output=True, text=True, timeout=900)
+    res["test_launch_s"] = time.perf_counter() - t0
+    check(proc.returncode == 0, f"two ranks test: exit {proc.returncode}: "
+          f"{proc.stdout[-1500:]} {proc.stderr[-2500:]}")
+    ref = os.path.join(RAW_DIR, "dp2_one")
+    os.makedirs(ref)
+    os.symlink(os.path.join(out, "model"), os.path.join(ref, "model"))
+    try:
+        with torch_defaults():
+            cli_run.main([x if x != out else ref for x in test_args])
+    finally:
+        auto_routing()
+    shards = sorted(os.listdir(os.path.join(out, "result")))
+    check(shards == sorted(f"cast_{s}_0.{r}.{k}" for s in ("dev", "test")
+                           for r in range(DP_RANKS)
+                           for k in ("answer", "run")),
+          f"two ranks test: files {shards}")
+    merged = merge_shards(os.path.join(out, "result"))
+    want = merge_shards(os.path.join(ref, "result"))
+    lines, ties = {}, 0
+    for prefix, kinds in want.items():
+        for kind, path in kinds.items():
+            with open(path) as f:
+                w = f.read().splitlines()
+            with open(merged[prefix][kind]) as f:
+                g = f.read().splitlines()
+            what = f"two ranks test: {prefix}.all.{kind}"
+            if kind == "answer":        # the ranks' rows, merged rank by rank
+                check(w and sorted(g) == sorted(w), f"{what} differs")
+            else:                       # a query's lines in rank order
+                gq, wq = by_query(g), by_query(w)
+                check(w and sorted(gq) == sorted(wq), f"{what}: queries")
+                ties += sum(same_run_lines(gq[q], wq[q], what) for q in wq)
+            lines[f"{prefix}.{kind}"] = len(w)
+
+    profile = rank_profile(trace_dir, steps)
+    res.update(
+        ran=True, steps=steps, ranks=DP_RANKS, global_batch=DP_RANKS * B,
+        step_losses_rel_diff=rel, step_losses_bit_equal=exact,
+        replicas_checksum=int(agree.group(1)),
+        params_vs_emulation_max_abs=p_diff,
+        dev_total=(dp_dev["dev_total"], one_dev["total"]),
+        dev_rel_diff=dev_rel, merged_lines=lines, merged_run_ties=ties,
+        # the flat all-reduce of the gradients and the loss terms, and one
+        # all-reduce of each term's denominator (the host's gloo flag aside)
+        reduced_bytes_per_step=4 * (n_params + 2 * (len(emulated[0]) - 2)),
+        n_params=n_params, a_rank=profile,
+        phase_s=time.perf_counter() - t_phase)
     return res
 
 
@@ -3571,10 +4145,13 @@ def raw_files(dev, bare_ms):
 OTHER_MODELS = ("masque", "s2sa", "gttp", "glks", "tmemnet")
 RANK_MODELS = ("masque", "tmemnet")
 COPY_MODELS = ("masque", "gttp", "glks")      # fast_argmax="pallas" combines
-# 128 requests (two one-shot batches, the continuous loops' stream) and 6
-# train steps a model: cut from 256 and 10 to make room for phase 16
+# 128 requests (two one-shot batches, the continuous loops' stream) and 3
+# train steps a model: cut from 256 and 10 to make room for phase 16, and
+# from 6 steps for phase 13b (a GRU model's step takes about 4 s of host
+# time). GLKS keeps 6: after 3 its loss without dropout had risen (16.73 ->
+# 19.03, measured on one H100), and the gate asks it to fall
 OTHER_REQUESTS = 128
-OTHER_TRAIN_STEPS = 6
+OTHER_TRAIN_STEPS = {"glks": 6}
 # requests of the continuous loops' warm-up runs (a full batch and a
 # refill: every program shape of the loop, the device loop's capture)
 WARM_REQUESTS = B + REFILL
@@ -4045,7 +4622,7 @@ def train_other(dev, name):
         ta.LAUNCHES_FWD["rng"] = ta.LAUNCHES_BWD["rng"] = 0
         aa.LAUNCHES = aa.LAUNCHES_BWD = 0
         losses, times = [], []
-        for _ in range(OTHER_TRAIN_STEPS):
+        for _ in range(OTHER_TRAIN_STEPS.get(name, 3)):
             t0 = time.perf_counter()
             o = trainer.train_step(st, batch, gen)
             torch.cuda.synchronize()
@@ -4740,6 +5317,7 @@ def main() -> int:
     from case_rg_tpu_torch.kernels import _build
 
     # the plain versions' products accumulate in full f32, as the kernels do
+    read_torch_defaults()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -4839,6 +5417,14 @@ def main() -> int:
         "corpus", "prepare_s", "preempt", "avg_s", "evaluate_s",
         "phase_s")}), flush=True)
     elapsed("raw files")
+    import shutil
+    try:
+        dp = data_parallel(dev, card)
+    finally:
+        shutil.rmtree(RAW_DIR, ignore_errors=True)
+    print("data-parallel training and testing: " + json.dumps(
+        {"world_of_one": raw["world_of_one"], **dp}), flush=True)
+    elapsed("data parallelism")
     t0 = time.perf_counter()
     others = other_models(dev)
     print("other models: " + json.dumps({

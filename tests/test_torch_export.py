@@ -41,6 +41,34 @@ from case_rg_tpu_torch.runtime.inference import make_predict_fn
 from case_rg_tpu_torch.serving.featurize import chunk_to_batch
 from tests.test_torch_kernels import cuda, one_torch_thread  # noqa: F401
 
+@pytest.fixture(scope="module", autouse=True)
+def shared_export_loads():
+    """``torch.export.load`` once per archive in a module: a load takes
+    about 5 ms a graph node on this CPU, and several tests serve the same
+    archive. Keyed by the file's path, size and mtime, so an archive
+    written anew loads anew; every call gets the one ``ExportedProgram``
+    (each consumer takes its own ``.module()``). Yields the patched load,
+    whose ``remember(program, path)`` files a program under an archive."""
+    real = torch.export.load
+    cache = {}
+
+    def key(f):
+        st = os.stat(f)
+        return os.path.realpath(f), st.st_size, st.st_mtime_ns
+
+    def load(f, *args, **kwargs):
+        if args or kwargs or not isinstance(f, (str, os.PathLike)):
+            return real(f, *args, **kwargs)
+        if key(f) not in cache:
+            cache[key(f)] = real(f)
+        return cache[key(f)]
+
+    load.remember = lambda program, f: cache.__setitem__(key(f), program)
+    torch.export.load = load
+    yield load
+    torch.export.load = real
+
+
 WORDS = ("energy motion kinetic potential object system force heat whale "
          "dolphin orca size ocean mammal salary nurse doctor pay").split()
 

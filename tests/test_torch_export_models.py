@@ -40,8 +40,8 @@ def test_export_equals_live_predict(name, opts):
     vocab = toy_vocab()
     cfg = build_model_cfg(ModelConfig(
         embedding_size=16, hidden_size=16, num_heads=2, enc_layers=1,
-        dec_layers=1, max_target_length=MAX_LEN, max_dec_len=MAX_LEN,
-        min_window_size=2, num_windows=1), name, vocab)
+        dec_layers=1, tmemnet_layers=2, max_target_length=MAX_LEN,
+        max_dec_len=MAX_LEN, min_window_size=2, num_windows=1), name, vocab)
     model = create_model(name, cfg, device="cpu", seed=3)
     perturb_affine(model, torch.Generator().manual_seed(4))
     dcfg = DataConfig(query_len=6, passage_len=6, num_passage=3,
@@ -103,8 +103,8 @@ def test_early_exit_export_equals_live_predict(name):
     vocab = toy_vocab()
     cfg = build_model_cfg(ModelConfig(
         embedding_size=16, hidden_size=16, num_heads=2, enc_layers=1,
-        dec_layers=1, max_target_length=EE_LEN, max_dec_len=EE_LEN,
-        min_window_size=2, num_windows=1), name, vocab)
+        dec_layers=1, tmemnet_layers=2, max_target_length=EE_LEN,
+        max_dec_len=EE_LEN, min_window_size=2, num_windows=1), name, vocab)
     model = create_model(name, cfg, device="cpu", seed=3)
     perturb_affine(model, torch.Generator().manual_seed(4))
     _push_eos(model, cfg, EOS_PUSH[name])

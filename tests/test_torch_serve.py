@@ -35,6 +35,7 @@ import pytest
 import torch
 
 from case_rg_tpu_torch.cli.serve import main as port_main
+from tests.test_torch_export import shared_export_loads  # noqa: F401
 from tests.test_torch_kernels import cuda, one_torch_thread  # noqa: F401
 
 WORDS = ("energy motion kinetic potential mechanical object system force heat "
@@ -161,6 +162,26 @@ def served(tmp_path_factory):
         want = f.read()
     return {"root": root, "common": common, "reqs": reqs, "want": want,
             "scores": scores, "prep": prep, "out": out}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def saved_programs_served(shared_export_loads):
+    """An archive that ``cli/export_model`` saves in this module is served
+    as the program it saved (``shared_export_loads.remember``): this
+    module's tests hold serving to the JAX CLI, and a load of the fixed-trip
+    archive takes about 20 s on this CPU. The archive's round trip through
+    the file is held in ``tests/test_torch_export.py``
+    (``Pipeline.from_export``, ``cli/export_model --check``)."""
+    real = torch.export.save
+
+    def save(program, f, *args, **kwargs):
+        real(program, f, *args, **kwargs)
+        if not args and not kwargs and isinstance(f, (str, os.PathLike)):
+            shared_export_loads.remember(program, f)
+
+    torch.export.save = save
+    yield
+    torch.export.save = real
 
 
 def _port(served, name, *extra):
@@ -348,7 +369,7 @@ def test_http(served, extra):
     (["--from_export", "artifact", "--continuous"],
      "--continuous does not apply"),
     (["--from_export", "artifact", "--bf16"], "--bf16 does not apply"),
-    (["--pool_shard", "2"], "item 7"),
+    (["--pool_shard", "2"], "item 7b"),
     (["--from_export", "artifact", "--bf16_scores"],
      "--bf16_scores does not apply"),
 ], ids=["from_export-continuous", "from_export-bf16", "pool_shard",
