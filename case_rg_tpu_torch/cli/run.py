@@ -58,6 +58,14 @@ batch's loss and gradient, one state on every rank, checkpoints by rank
 D`` or ``D,1`` must name the world size. ``--multihost`` without
 torchrun's environment raises.
 
+Without ``--multihost``, ``--mode test`` runs one replica of the model
+on each device of a ``--device`` list (``cuda:0,cuda:1``; ``cpu,cpu`` on
+the CPU; ``runtime/replicas.py``, the JAX ``Trainer.predict``'s
+``local_mesh``): each batch of the global ``--batch_size`` splits by rows
+over the first d devices, d = gcd(the batch, the ``--continuous`` refill,
+the devices), one continuous loop a device; the result files are one
+process's. ``--device cuda`` (the default) and ``cuda:i`` are one card.
+
 Flags with no effect in the port: ``--fast_rng``/``--no-fast_rng`` (the
 port has one dropout generator, Philox on the card) and the JAX package's
 XLA compile cache. Refused, each with the ROADMAP item that holds it:
@@ -69,6 +77,7 @@ the card has no orbax, and no slice needs its on-disk format).
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 
 import numpy as np
@@ -98,7 +107,9 @@ def build_parser():
     p.add_argument("--mode", type=str, required=True,
                    choices=["train", "test", "ps_train", "avg"])
     p.add_argument("--device", type=str, default="cuda",
-                   help="cuda (default; raises without a card) or cpu")
+                   help="cuda (default: one card; raises without a "
+                        "card), cuda:i, cpu, or a comma list of replicas "
+                        "that --mode test runs over (cuda:0,cuda:1)")
     p.add_argument("--data_path", type=str, default="./dataset/")
     p.add_argument("--dataset", type=str, default="cast")
     p.add_argument("--prepared_dir", type=str, default=None)
@@ -364,13 +375,14 @@ def _load_weights(args, vocab, epoch, model):
 
 
 def test(args):
-    from ..device import resolve_device
-    from ..runtime.inference import make_predict_fn
+    from ..device import resolve_devices
+    from ..runtime.inference import make_replicated_predict
+    from ..runtime.replicas import Replicas
     from ..train.trainer import predict
 
     prepared, output, _unused, vocab, mcfg = setup(args, need_train=False)
     args.output_path = output
-    resolve_device(args.device)
+    sizes = [args.batch_size]
     if args.continuous:
         if args.rank_only or args.beam_width > 1 or args.decoding != "greedy":
             raise SystemExit("--continuous is greedy full predict; it "
@@ -381,6 +393,10 @@ def test(args):
             raise SystemExit(f"--refill must be in [1, batch_size] and "
                              f"--chunk_steps >= 1; got refill {refill}, "
                              f"chunk_steps {args.chunk_steps}")
+        sizes.append(refill)
+    # one replica a device of the host (the JAX Trainer.predict's
+    # local_mesh); a rank of a process group keeps its own card
+    devs = resolve_devices(args.device, sizes)
 
     splits = []
     for split in ("dev", "test"):
@@ -409,64 +425,79 @@ def test(args):
               flush=True)
         epochs_to_test = [be]
 
-    model = predict_fn = cont = None
+    model = predict_fn = conts = reps = None
     for epoch in epochs_to_test:
         if not checkpoint_exists(output, epoch):
             continue
         model = _load_weights(args, vocab, epoch, model)
+        if reps is not None:
+            reps.sync()
         if predict_fn is None:
+            reps = Replicas(model, devs)
             try:
-                predict_fn = make_predict_fn(
-                    model, model.cfg, args.max_target_length,
+                predict_fn = make_replicated_predict(
+                    reps, model.cfg, args.max_target_length,
                     beam_width=args.beam_width, early_exit=args.early_exit,
                     fast_argmax=args.fast_argmax, decoding=args.decoding,
                     sample_seed=args.seed, temperature=args.temperature,
                     top_k=args.top_k, top_p=args.top_p,
-                    rank_only=args.rank_only, device=args.device)
+                    rank_only=args.rank_only)
             except ValueError as e:
                 raise SystemExit(str(e))
             if args.continuous:
-                cont = _continuous_fns(args, model)
+                conts = [_continuous_fns(args, m, dv, len(reps))
+                         for m, dv in zip(reps.models, reps.devices)]
         print(f"[run] test epoch {epoch}", flush=True)
         for split, arrays, meta in splits:
-            if cont is not None:
-                preds = _predict_continuous(args, cont, arrays)
+            if conts is not None:
+                preds = _predict_continuous(args, conts, arrays, reps)
             else:
                 preds = predict(arrays, predict_fn, args.batch_size)
             save_results(preds, meta, vocab, output, mesh.process_index(),
                          epoch, f"{args.dataset}_{split}")
+    if reps is not None:
+        reps.close()
 
 
-def _continuous_fns(args, model):
-    """The continuous decode's functions for ``--continuous``: (init, chunk,
-    refill) of the chunk loop, or the device loop's ``DeviceLoopFns``
-    (its buffers and captured graphs are kept across epochs and splits; new
-    weights are captured again)."""
-    refill = args.refill or max(args.batch_size // 4, 1)
+def _continuous_fns(args, model, device, d: int = 1):
+    """One replica's continuous decode for ``--continuous`` (its share of
+    the rows, ``args.batch_size // d``): (init, chunk, refill) of the chunk
+    loop, or the device loop's ``DeviceLoopFns`` (its buffers and captured
+    graphs are kept across epochs and splits; new weights are captured
+    again)."""
+    bs, refill = _replica_rows(args, d)
     if args.device_loop:
         from ..runtime.continuous.device_loop import make_device_loop_fns
-        stage = args.stage_rows or max(
-            refill, args.batch_size * args.device_loop
-            * args.chunk_steps // 10)
+        stage = max(args.stage_rows // d, refill) if args.stage_rows else \
+            max(refill, bs * args.device_loop * args.chunk_steps // 10)
         return make_device_loop_fns(
             model, args.max_target_length, args.chunk_steps,
             n_chunks=args.device_loop, stage_rows=stage,
             refill_bound=refill, fast_argmax=args.fast_argmax,
-            device=args.device)
+            device=device)
     from ..runtime.continuous import make_continuous_fns
     return make_continuous_fns(model, args.max_target_length,
                                args.chunk_steps, fast_argmax=args.fast_argmax,
-                               device=args.device)
+                               device=device)
 
 
-def _predict_continuous(args, fns, arrays):
+def _replica_rows(args, d: int):
+    """(rows, refill) of one of ``d`` replicas: the global ``--batch_size``
+    and ``--refill`` (batch/4 by default) split evenly."""
+    refill = args.refill or max(args.batch_size // 4, 1)
+    return args.batch_size // d, refill // d
+
+
+def _predict_continuous(args, conts, arrays, reps):
     """Offline continuous-batching predict (--mode test --continuous): rows
     decode at their own pace, freed slots refill from the remaining
-    dataset rows. Answers equal the batch path's. Yields (host_batch,
-    outputs) rows for save_results, in dataset order."""
+    dataset rows, one loop a replica (``runtime/replicas``). Answers equal
+    the batch path's. Yields (host_batch, outputs) rows for save_results,
+    in dataset order."""
     from ..runtime.continuous import run_continuous, run_continuous_device
+    from ..runtime.replicas import run_continuous_replicated
 
-    refill = args.refill or max(args.batch_size // 4, 1)
+    bs, refill = _replica_rows(args, len(conts))
     feed = {k: arrays[k] for k in _DECODE_INPUTS[args.model]}
 
     def make_batch(reqs, k):
@@ -479,17 +510,25 @@ def _predict_continuous(args, fns, arrays):
     rows = range(len(arrays["id"]))[mesh.process_index()::
                                     mesh.process_count()]
     reqs = ({"i": i} for i in rows)
-    if args.device_loop:
-        run_continuous_device(reqs, make_batch, fns, args.batch_size, refill,
-                              emit, max_len=args.max_target_length,
-                              lookahead=args.lookahead)
-    else:
+
+    def run(fns, src, em):
+        if args.device_loop:
+            return run_continuous_device(
+                src, make_batch, fns, bs, refill, em,
+                max_len=args.max_target_length, lookahead=args.lookahead,
+                ordered=len(conts) == 1)
         init_fn, chunk_fn, refill_fn = fns
-        run_continuous(reqs, make_batch, init_fn, chunk_fn, refill_fn,
-                       args.batch_size, refill, emit=emit,
-                       lookahead=args.lookahead,
-                       refill_min=max(1, min(args.refill_min, refill)),
-                       async_harvest=args.async_harvest)
+        return run_continuous(
+            src, make_batch, init_fn, chunk_fn, refill_fn, bs, refill,
+            emit=em, lookahead=args.lookahead,
+            refill_min=max(1, min(args.refill_min, refill)),
+            async_harvest=args.async_harvest, ordered=len(conts) == 1)
+    if len(conts) == 1:
+        run(conts[0], reqs, emit)
+    else:
+        run_continuous_replicated(
+            reqs, [functools.partial(run, c) for c in conts], emit,
+            [bs + refill] * len(conts), replicas=reps)
     for i, ids, rk in collected:
         out = {"answer": ids[None]}
         if rk is not None:

@@ -81,9 +81,21 @@ dense attention paths (``ops/attention.set_bf16_scores``; the kernels keep
 f32 scores), process-wide, as the JAX CLI does; with ``--from_export`` it
 is refused, since the archive fixes its program.
 
+Several devices: as the JAX CLI's serving mesh, a batch splits by rows
+over one replica of the model a device (``runtime/replicas.py``) when
+``--device`` is a comma list of the replicas (``cuda:0,cuda:1``;
+``cpu,cpu`` on the CPU). ``--device cuda`` (the default) and ``cuda:i``
+are one card.
+``--batch_size``, ``--batch_buckets`` and ``--refill`` stay global: the
+replicas are the first d devices, d = gcd(every batch bucket, the refill
+bucket under ``--continuous``, the devices), and each holds B/d rows.
+``--continuous`` runs one loop (its lanes, its device loop) a replica;
+arrivals go to the replica with the fewest requests in hand, and answers
+come back in request order, as on one card. ``--from_export`` serves on
+one device.
+
 Not served by the port yet: ``--pool_shard`` > 1 (the pool axis over
-cards and the serving mesh, ROADMAP Queue 1 item 7b), refused with a
-message.
+cards, ROADMAP Queue 1 item 7b), refused with a message.
 """
 
 from __future__ import annotations
@@ -102,10 +114,10 @@ import torch
 
 from ..config import DataConfig, ModelConfig
 from ..data.vocab import Vocabulary
-from ..device import resolve_device
+from ..device import resolve_device, resolve_devices
 from ..models import build_model_cfg, create_model
-from ..runtime.continuous.base import HostCopy
-from ..runtime.inference import make_predict_fn
+from ..runtime.inference import make_replicated_predict
+from ..runtime.replicas import Pending, Replicas
 from ..runtime.io import ids_to_sentence, remove_duplicate
 from ..serving.featurize import chunk_to_batch, parse_buckets
 from ..serving.http import serve_http
@@ -129,7 +141,9 @@ def build_parser():
                         "supplies the model, batch size and data shapes) "
                         "instead of --model/--output_path")
     p.add_argument("--device", type=str, default="cuda",
-                   help="cuda (default; raises without a card) or cpu")
+                   help="cuda (default: one card; raises without a card), "
+                        "cuda:i, cpu, or a comma list of replicas "
+                        "(cuda:0,cuda:1; cpu,cpu)")
     p.add_argument("--epoch", type=str, default=None,
                    help="checkpoint epoch (default: latest); 'best' serves "
                         "the best-dev-loss epoch (model/best.json); 'avg' "
@@ -268,24 +282,10 @@ def resolve_batch_size(batch_size, rank_only):
     return 128 if rank_only else 64
 
 
-class _Pending:
-    """A predict's outputs on their way to the host: pinned copies started
-    at dispatch (``HostCopy``), read when the batch's responses are
-    written, so ``--pipeline_depth`` batches overlap on the card."""
-
-    def __init__(self, out):
-        self._keys = list(out)
-        self._copy = HostCopy([out[k] for k in self._keys])
-
-    def get(self) -> dict:
-        return dict(zip(self._keys, self._copy.get()))
-
-
 def _refuse_unported(args) -> None:
     if args.pool_shard > 1:
-        raise SystemExit("--pool_shard > 1: the sharded serving mesh is not "
-                         "ported yet (ROADMAP Queue 1 item 7b: the pool axis "
-                         "over cards and multi-card serving)")
+        raise SystemExit("--pool_shard > 1: the pool axis over cards is not "
+                         "ported yet (ROADMAP Queue 1 item 7b)")
 
 
 def _from_export_args(args) -> dict:
@@ -388,6 +388,9 @@ def main(argv=None, _server_ready=None):
         raise SystemExit("--model and --output_path are required (unless "
                          "--from_export)")
     args.batch_size = resolve_batch_size(args.batch_size, args.rank_only)
+    if sidecar is not None and "," in args.device:
+        raise SystemExit("--from_export serves on one device; --device "
+                         f"{args.device} names several")
     dev = resolve_device(args.device)
 
     if not args.fused_attn:
@@ -409,34 +412,6 @@ def main(argv=None, _server_ready=None):
     detok = vocab.detokenizer()
     served = 0
 
-    if sidecar is not None:
-        # the archive is the whole predict program with the parameters in
-        # it (cli/export_model.py): nothing to build or restore. One fixed
-        # (batch_size x pool) shape.
-        from ..runtime.exported import load_exported
-        try:
-            predict_fn = load_exported(args.from_export,
-                                       sidecar["platforms"]).call
-        except ValueError as e:   # not a torch.export archive
-            raise SystemExit(f"--from_export: {e}")
-        epoch = "export:" + str(sidecar.get("epoch"))
-    else:
-        epoch = _resolve_epoch(args)
-        mcfg, model = load_model(args, vocab, epoch)
-        try:
-            predict_fn = make_predict_fn(model, mcfg, args.max_target_length,
-                                         beam_width=args.beam_width,
-                                         early_exit=args.early_exit,
-                                         fast_argmax=args.fast_argmax,
-                                         decoding=args.decoding,
-                                         sample_seed=args.sample_seed,
-                                         temperature=args.temperature,
-                                         top_k=args.top_k, top_p=args.top_p,
-                                         rank_only=args.rank_only,
-                                         device=args.device)
-        except ValueError as e:   # --rank_only on a model without a rank head
-            raise SystemExit(str(e))
-
     bbuckets = parse_buckets(args.batch_buckets, bs, "--batch_buckets") \
         if args.batch_buckets else [bs]
     if args.continuous:
@@ -452,12 +427,40 @@ def main(argv=None, _server_ready=None):
                              f"{args.refill_min} (refill {args.refill})")
         bbuckets = sorted(set(bbuckets + [args.refill]))
 
-    def run_predict(batch):
-        return _Pending(predict_fn(batch))
+    reps = None
+    if sidecar is not None:
+        # the archive is the whole predict program with the parameters in
+        # it (cli/export_model.py): nothing to build or restore. One fixed
+        # (batch_size x pool) shape, on one device.
+        from ..runtime.exported import load_exported
+        try:
+            call = load_exported(args.from_export, sidecar["platforms"]).call
+        except ValueError as e:   # not a torch.export archive
+            raise SystemExit(f"--from_export: {e}")
+        epoch = "export:" + str(sidecar.get("epoch"))
+
+        def run_predict(batch):
+            return Pending([call(batch)])
+    else:
+        # the serving mesh: a replica a device of the data axis, d =
+        # gcd(every batch bucket, the devices); one device is one replica
+        devs = resolve_devices(args.device, bbuckets)
+        epoch = _resolve_epoch(args)
+        mcfg, model = load_model(args, vocab, epoch)
+        reps = Replicas(model, devs)
+        try:
+            run_predict = make_replicated_predict(
+                reps, mcfg, args.max_target_length,
+                beam_width=args.beam_width, early_exit=args.early_exit,
+                fast_argmax=args.fast_argmax, decoding=args.decoding,
+                sample_seed=args.sample_seed, temperature=args.temperature,
+                top_k=args.top_k, top_p=args.top_p, rank_only=args.rank_only)
+        except ValueError as e:   # --rank_only on a model without a rank head
+            raise SystemExit(str(e))
 
     def responses_for(chunk, out, dcfg_k, default_ids=None) -> List[dict]:
         nonlocal served
-        if isinstance(out, _Pending):
+        if isinstance(out, Pending):
             out = out.get()
         sents = None
         if "answer" in out:
@@ -509,24 +512,27 @@ def main(argv=None, _server_ready=None):
                              "chunks (the device loop's multi-lane loop "
                              "does take --lookahead: per-lane "
                              "double-dispatch)")
-        from ..runtime.continuous import make_continuous_fns, run_continuous
-        init_fn, chunk_fn, refill_fn = make_continuous_fns(
-            model, args.max_target_length, args.chunk_steps,
-            fast_argmax=args.fast_argmax, decoding=args.decoding,
-            temperature=args.temperature, top_k=args.top_k,
-            top_p=args.top_p, device=args.device)
 
         # sampled continuous serving: each request gets its own key (it
         # rides in the batch and then in the row's decode state), derived
         # from --sample_seed and the request's optional "seed" field
         # (fallback: an arrival counter), so a request with a seed samples
-        # the same answer whatever its batch, refill timing or lane
+        # the same answer whatever its batch, refill timing, lane or card.
+        # Over replicas the fallback is drawn in arrival order, before any
+        # replica featurizes the request.
         key_counter = itertools.count()
+        fallback = {}
+
+        def arrive(req):
+            if isinstance(req, dict) and req.get("seed") is None:
+                fallback[id(req)] = next(key_counter)
 
         def request_keys(chunk, width):
             ks = []
             for r in chunk:
                 ent = r.get("seed") if isinstance(r, dict) else None
+                if ent is None:
+                    ent = fallback.pop(id(r), None)
                 ent = next(key_counter) if ent is None else int(ent)
                 ks.append(np.random.SeedSequence(
                     [args.sample_seed, ent]).generate_state(2, np.uint32))
@@ -564,38 +570,33 @@ def main(argv=None, _server_ready=None):
                 out["rank"] = rank_row[None]
             return out
 
-        cont = {"make_batch": cont_make_batch_for(dcfg),
-                "init": init_fn, "chunk": chunk_fn,
-                "refill": refill_fn, "refill_size": args.refill,
+        from ..runtime.continuous import run_continuous
+        base = {"make_batch": cont_make_batch_for(dcfg),
                 "run": run_continuous, "row_out": row_out,
                 "lookahead": args.lookahead,
                 "refill_min": args.refill_min,
                 "async_harvest": args.async_harvest}
-        if args.device_loop:
-            from ..runtime.continuous.device_loop import \
-                make_device_loop_fns
-            stage = args.stage_rows or max(
-                args.refill, args.batch_size * args.device_loop
-                * args.chunk_steps // 10)
-            cont["device_fns"] = make_device_loop_fns(
-                model, args.max_target_length, args.chunk_steps,
-                n_chunks=args.device_loop, stage_rows=stage,
-                refill_bound=args.refill, fast_argmax=args.fast_argmax,
-                decoding=args.decoding, temperature=args.temperature,
-                top_k=args.top_k, top_p=args.top_p, device=args.device)
         if args.pool_buckets:
             # multi-lane continuous serving: one lane (own decode state)
             # per static pool size; requests route to the smallest bucket
             # that fits and still refill mid-flight
             cbuckets = parse_buckets(args.pool_buckets, dcfg.num_passage)
-            cont["buckets"] = cbuckets
-            cont["make_batch_for"] = {
+            base["buckets"] = cbuckets
+            base["make_batch_for"] = {
                 k: cont_make_batch_for(
                     dataclasses.replace(dcfg, num_passage=k))
                 for k in cbuckets}
+        d = len(reps)
+        conts = [_replica_cont(args, base, m, dv, bs // d, args.refill // d)
+                 for m, dv in zip(reps.models, reps.devices)]
+        cont = conts[0]
+        if d > 1:
+            cont = dict(base, replicas=conts, replica_set=reps,
+                        arrive=arrive, batch_size=bs,
+                        refill_size=args.refill)
 
     if args.warmup:
-        _warmup(args, dcfg, vocab, bbuckets, cont, run_predict, dev)
+        _warmup(args, dcfg, vocab, bbuckets, cont, run_predict, dev, reps)
 
     if args.listen:
         serve_http(args, dcfg, responses_for, run_predict, vocab, bbuckets,
@@ -618,28 +619,60 @@ def main(argv=None, _server_ready=None):
             src.close()
         if sink is not sys.stdout:
             sink.close()
+        if reps is not None:
+            reps.close()
     if served == 0:
         print("[serve] no requests", file=sys.stderr)
         return
     precision = sidecar["dtype"] if sidecar is not None else \
         ("bf16" if args.bf16 else "f32")
+    where = "" if reps is None or len(reps) == 1 else \
+        f", {len(reps)} replicas"
     if cont is not None:
         print(f"[serve] {served} requests answered continuously "
               f"({stats['chunks']} chunks, {stats['refills']} refills, "
-              f"epoch {epoch}, {precision})", file=sys.stderr)
+              f"epoch {epoch}, {precision}{where})", file=sys.stderr)
     else:
         print(f"[serve] {served} requests answered (epoch {epoch}, "
-              f"{precision})", file=sys.stderr)
+              f"{precision}{where})", file=sys.stderr)
 
 
-def _warmup(args, dcfg, vocab, bbuckets, cont, run_predict, dev) -> None:
+def _replica_cont(args, base: dict, model, device, bs: int, refill: int
+                  ) -> dict:
+    """One replica's continuous serving: ``base`` (the featurizers, the
+    lanes' buckets, the loop options) with the replica's programs, built on
+    its model and device, at its share of the rows and refills."""
+    from ..runtime.continuous import make_continuous_fns
+    init_fn, chunk_fn, refill_fn = make_continuous_fns(
+        model, args.max_target_length, args.chunk_steps,
+        fast_argmax=args.fast_argmax, decoding=args.decoding,
+        temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+        device=device)
+    cont = dict(base, init=init_fn, chunk=chunk_fn, refill=refill_fn,
+                batch_size=bs, refill_size=refill)
+    if args.device_loop:
+        from ..runtime.continuous.device_loop import make_device_loop_fns
+        d = args.batch_size // bs
+        stage = max(args.stage_rows // d, refill) if args.stage_rows else \
+            max(refill, bs * args.device_loop * args.chunk_steps // 10)
+        cont["device_fns"] = make_device_loop_fns(
+            model, args.max_target_length, args.chunk_steps,
+            n_chunks=args.device_loop, stage_rows=stage,
+            refill_bound=refill, fast_argmax=args.fast_argmax,
+            decoding=args.decoding, temperature=args.temperature,
+            top_k=args.top_k, top_p=args.top_p, device=device)
+    return cont
+
+
+def _warmup(args, dcfg, vocab, bbuckets, cont, run_predict, dev,
+            reps=None) -> None:
     """Run every serving program once before accepting traffic, with a
     synthetic request per (pool bucket x batch width): the first call's
     one-time work (kernel builds, cuBLAS handles, the allocator's pools,
-    the device loop's CUDA-graph captures) happens here, in the main
-    thread, before any other thread runs."""
+    the device loop's CUDA-graph captures) happens here, before any
+    request. Each replica's continuous programs run in its own thread (its
+    card current), a replicated predict over every replica."""
     t0 = time.time()
-    bs = args.batch_size
 
     def warm_req(k):
         # explicit seed: keep the sampled-serving arrival-counter key
@@ -650,12 +683,14 @@ def _warmup(args, dcfg, vocab, bbuckets, cont, run_predict, dev) -> None:
     pools = cont["buckets"] if cont is not None and "buckets" in cont \
         else (parse_buckets(args.pool_buckets, dcfg.num_passage)
               if args.pool_buckets else [dcfg.num_passage])
-    if cont is not None:
-        mbs = cont["make_batch_for"] if "buckets" in cont else \
-            {pools[0]: cont["make_batch"]}
-        dfns = cont.get("device_fns")
+
+    def warm_cont(c):
+        bs, refill = c["batch_size"], c["refill_size"]
+        mbs = c["make_batch_for"] if "buckets" in c else \
+            {pools[0]: c["make_batch"]}
+        dfns = c.get("device_fns")
         for k, mb in mbs.items():
-            for width in {bs, args.refill}:
+            for width in {bs, refill}:
                 if dfns is not None:
                     # device-loop serving runs ITS programs (the encode at
                     # both widths; wrap, ring and mega at batch width, which
@@ -670,19 +705,25 @@ def _warmup(args, dcfg, vocab, bbuckets, cont, run_predict, dev) -> None:
                     wrap = dfns.wrap_fn(st, uid, uid >= 0)
                     dfns.mega_fn(wrap, _empty_stage(dfns, wrap), 0)
                     continue
-                st, _ = cont["init"](mb([warm_req(k)], width))
+                st, _ = c["init"](mb([warm_req(k)], width))
                 if width == bs:
-                    cont["chunk"](st)
+                    c["chunk"](st)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    if cont is not None and "replicas" in cont:
+        cont["replica_set"].map(lambda i, c: warm_cont(c), cont["replicas"])
+    elif cont is not None:
+        warm_cont(cont)
     else:
         for k in pools:
             dk = dataclasses.replace(dcfg, num_passage=k)
             for width in bbuckets:
                 run_predict(chunk_to_batch([warm_req(k)], args.model, vocab,
                                            dk, width)).get()
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
     kind = "continuous" if cont is not None else "predict"
-    print(f"[serve] warmup ran the {kind} programs (pools {pools}) in "
+    n = "" if reps is None or len(reps) == 1 else f" on {len(reps)} replicas"
+    print(f"[serve] warmup ran the {kind} programs (pools {pools}){n} in "
           f"{time.time() - t0:.0f}s", file=sys.stderr)
 
 

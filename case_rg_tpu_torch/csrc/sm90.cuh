@@ -12,6 +12,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <mutex>
 
 namespace {
 
@@ -29,13 +30,17 @@ constexpr int kSmemLimit = 232448;        // a block's most on sm_90
 // `wide_clusters` non-portable cluster sizes (up to 16
 // blocks). A table of the kernels raised so far keeps a bit a device each.
 // Every launcher of the port goes through it: no launch calls
-// cudaFuncSetAttribute again once its kernel is raised.
+// cudaFuncSetAttribute again once its kernel is raised. The table is
+// read and written under a lock: replicas on several cards launch from
+// several host threads, each with its own card current.
 inline cudaError_t allow_smem(const void* kernel, int smem,
                               bool wide_clusters = false) {
   constexpr int kSlots = 64;
   static const void* kernels[kSlots];
   static unsigned long long raised[kSlots];
+  static std::mutex table;
   if (smem <= kDefaultSmem && !wide_clusters) return cudaSuccess;
+  std::lock_guard<std::mutex> hold(table);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;

@@ -60,9 +60,8 @@ class Vocabulary:
     def tokenizer(self) -> WordPieceTokenizer:
         # cached: the tokenizer lazily builds a native wordpiece table
         # (~10 ms for a BERT-size vocab) that serving would otherwise
-        # rebuild per request chunk. NOTE: the native tokenizer reuses an
-        # output buffer — call it from one thread at a time (every serving
-        # path featurizes on a single dispatcher/worker thread).
+        # rebuild per request chunk. The native tokenizer reuses an output
+        # buffer under a lock: the replicas' threads featurize at once.
         tok = getattr(self, "_tokenizer", None)
         if tok is None:
             tok = WordPieceTokenizer(self.vocab2id, unk_word=UNK_WORD)

@@ -2,21 +2,25 @@
 
 The entry points default to ``device="cuda"``. Without a card they raise
 instead of running on the CPU; the CPU is used only when a caller asks for
-it (the tests do). In a process group that ``runtime/mesh.init_distributed``
+it (the tests do). ``resolve_devices`` gives the replicas that a device
+list names (``runtime/replicas.py``). In a process group that ``runtime/mesh.init_distributed``
 made on the card, "cuda" is this rank's card, ``cuda:LOCAL_RANK``."""
 
 from __future__ import annotations
 
 import contextlib
+from typing import List
 
 import numpy as np
 import torch
 
-from .runtime.mesh import local_device
+from .runtime.mesh import local_device, local_replicas
 
 
 def resolve_device(device="cuda") -> torch.device:
-    dev = torch.device(device)
+    """The one device of ``device``; of a replica list ("cpu,cpu",
+    "cuda:0,cuda:1"), the first, where the model is built."""
+    dev = torch.device(str(device).split(",")[0].strip())
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "case_rg_tpu_torch: a CUDA device was requested but torch sees "
@@ -24,6 +28,14 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         return local_device() or dev
     return dev
+
+
+def resolve_devices(device="cuda", sizes=()) -> List[torch.device]:
+    """The replicas that serving and testing run on, one model copy a
+    device (``runtime/mesh.local_replicas``: "cuda" = one card, a comma
+    list = its devices, d = gcd(every batch size, the devices)). Raises
+    without a card unless the CPU is asked for."""
+    return local_replicas(sizes, device)
 
 
 def batch_to_device(batch: dict, device: torch.device) -> dict:

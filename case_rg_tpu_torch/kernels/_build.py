@@ -11,6 +11,15 @@ and loads each library once per process, under a lock of its own, so the
 first calls of several threads (several ``cli/serve_multi`` backends)
 wait for one build and share one handle.
 
+Every launcher runs under ``on_input_card``: the C launchers launch on
+the calling thread's current device (``allow_smem``'s ``cudaGetDevice``,
+the launch itself), so the guard makes that the input's card, whichever
+thread calls (``runtime/replicas.py`` runs a replica a thread). Launch
+counters rise under ``COUNT_LOCK``, so they stay exact when several
+replicas launch at once, and each launch of a serving kernel also goes
+into the calling thread's own ``tally``: a CUDA graph's capture reads the
+launches its thread recorded, whatever other replicas launch meanwhile.
+
 Nothing here runs when the module is imported: the CPU tests import every
 module, and this machine may have no ``nvcc``.
 """
@@ -18,6 +27,7 @@ module, and this machine may have no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -36,6 +46,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+COUNT_LOCK = threading.Lock()       # every module's launch counters
+_TALLY = threading.local()          # the calling thread's launches by name
 _LOCKS: Dict[str, threading.Lock] = {}
 _LOCKS_LOCK = threading.Lock()
 
@@ -126,3 +138,30 @@ def check(rc: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launch function."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
+
+
+def on_input_card(fn):
+    """``fn(x, ...)`` with ``x``'s card as the current device (entered
+    only when another card is current: the exchange costs a few µs a
+    launch)."""
+    import torch
+
+    @functools.wraps(fn)
+    def launch(x, *args, **kw):
+        if x.device.index == torch.cuda.current_device():
+            return fn(x, *args, **kw)
+        with torch.cuda.device(x.device):
+            return fn(x, *args, **kw)
+    return launch
+
+
+def tally(name: str) -> None:
+    """One launch of ``name`` in the calling thread's tally (its module's
+    counter counts it too)."""
+    d = _TALLY.__dict__
+    d[name] = d.get(name, 0) + 1
+
+
+def thread_tally() -> Dict[str, int]:
+    """The calling thread's launches so far, by kernel name."""
+    return dict(_TALLY.__dict__)

@@ -234,6 +234,7 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+@_build.on_input_card
 def additive_scores_cuda(wq, uh, v):
     """The forward op's CUDA implementation: checks (``_aligned`` reads the
     tensors' addresses, so it runs only here), then one launch."""
@@ -248,10 +249,13 @@ def additive_scores_cuda(wq, uh, v):
         b, t, l, h, plan["keys_a_warp"], _stream(wq))
     _build.check(rc, "additive_scores forward")
     global LAUNCHES
-    LAUNCHES += 1
+    with _build.COUNT_LOCK:
+        LAUNCHES += 1
+    _build.tally("additive_scores")
     return out
 
 
+@_build.on_input_card
 def _launch_bwd(wq, uh, v, g):
     b, t, l, h = _check(wq, uh, v, g)
     plan = additive_scores_launch(b, t, l, h)["bwd"]
@@ -278,7 +282,8 @@ def _launch_bwd(wq, uh, v, g):
         _stream(wq))
     _build.check(rc, "additive_scores backward")
     global LAUNCHES_BWD
-    LAUNCHES_BWD += 1
+    with _build.COUNT_LOCK:
+        LAUNCHES_BWD += 1
     return dwq, duh, dv
 
 

@@ -90,6 +90,7 @@ def combine_copy_mass(cw: torch.Tensor, src_ids: torch.Tensor) -> torch.Tensor:
     return torch.ops.case_rg_torch.combine_copy_mass.default(cw, src_ids)
 
 
+@_build.on_input_card
 def combine_copy_mass_cuda(cw: torch.Tensor,
                            src_ids: torch.Tensor) -> torch.Tensor:
     """The op's CUDA implementation: checks, then one launch."""
@@ -128,7 +129,9 @@ def combine_copy_mass_cuda(cw: torch.Tensor,
         torch.cuda.current_stream(cw.device).cuda_stream)
     _build.check(rc, "combine_copy_mass")
     global LAUNCHES
-    LAUNCHES += 1
+    with _build.COUNT_LOCK:
+        LAUNCHES += 1
+    _build.tally("combine_copy_mass")
     return out
 
 

@@ -148,6 +148,7 @@ def single_query_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                                             num_heads)
 
 
+@_build.on_input_card
 def single_query_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           keep, num_heads: int) -> torch.Tensor:
     """The op's CUDA implementation: checks (``check_layout`` reads the
@@ -184,7 +185,9 @@ def single_query_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "single_query_mha")
     global LAUNCHES
-    LAUNCHES += 1
+    with _build.COUNT_LOCK:
+        LAUNCHES += 1
+    _build.tally("single_query_mha")
     return out
 
 

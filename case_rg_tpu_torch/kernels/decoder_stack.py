@@ -236,6 +236,7 @@ def stack_step(x: torch.Tensor, t, caches: torch.Tensor, m: torch.Tensor,
     return xout, caches
 
 
+@_build.on_input_card
 def stack_step_cuda(x: torch.Tensor, tt: torch.Tensor, caches: torch.Tensor,
                     m: torch.Tensor, mem_keep: torch.Tensor,
                     hist_keep: torch.Tensor, folded: Dict[str, torch.Tensor],
@@ -294,14 +295,22 @@ def stack_step_cuda(x: torch.Tensor, tt: torch.Tensor, caches: torch.Tensor,
         plan["cluster"], torch.cuda.current_stream(x.device).cuda_stream, None)
     _build.check(rc, "stack_step")
     global LAUNCHES
-    LAUNCHES += 1
+    with _build.COUNT_LOCK:
+        LAUNCHES += 1
+    _build.tally("stack_step")
     return xout
 
 
-@functools.lru_cache(maxsize=None)
 def max_active_clusters(l: int, tmax: int, h: int, f: int) -> int:
     """cudaOccupancyMaxActiveClusters of the two-block launch at these
-    shapes on the current card: how many rows it runs at once."""
+    shapes on the current card: how many rows it runs at once. Cached per
+    card (the wrapper runs with its input's card current)."""
+    return _max_active_clusters(l, tmax, h, f, torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _max_active_clusters(l: int, tmax: int, h: int, f: int, card: int
+                         ) -> int:
     smem = stack_step_smem(2, tmax, l, h, f)
     if smem > _SMEM_LIMIT:
         return 0

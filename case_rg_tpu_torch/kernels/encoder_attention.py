@@ -90,6 +90,7 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                                      num_heads)
 
 
+@_build.on_input_card
 def fused_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    keep, num_heads: int) -> torch.Tensor:
     """The op's CUDA implementation: checks, then one launch."""
@@ -126,7 +127,9 @@ def fused_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "fused_mha")
     global LAUNCHES
-    LAUNCHES += 1
+    with _build.COUNT_LOCK:
+        LAUNCHES += 1
+    _build.tally("fused_mha")
     return out
 
 

@@ -374,6 +374,7 @@ def _launch(lib, plan, what, q, k, v, keep, src, do, stats, rowterm, out,
         _build.check(rc, f"fused_train_mha {what} ({ln.kind})")
 
 
+@_build.on_input_card
 def _launch_fwd(q, k, v, keep, src, num_heads, rate, rng):
     lib, r, lq, lk, e, d = _check(q, k, v, keep, src, num_heads, rng)
     out = torch.empty_like(q)
@@ -382,10 +383,12 @@ def _launch_fwd(q, k, v, keep, src, num_heads, rate, rng):
     _launch(lib, train_mha_plan(lq, lk, d, rng)["fwd"], "forward", q, k, v,
             keep, src, None, stats, None, out, None, None, num_heads, rate,
             rng)
-    LAUNCHES_FWD["rng" if rng else "mask"] += 1
+    with _build.COUNT_LOCK:
+        LAUNCHES_FWD["rng" if rng else "mask"] += 1
     return out, stats
 
 
+@_build.on_input_card
 def _launch_bwd(q, k, v, keep, src, do, stats, num_heads, rate, rng):
     lib, r, lq, lk, e, d = _check(q, k, v, keep, src, num_heads, rng)
     plan = train_mha_plan(lq, lk, d, rng)["bwd"]
@@ -394,7 +397,8 @@ def _launch_bwd(q, k, v, keep, src, do, stats, num_heads, rate, rng):
                            device=q.device) if len(plan) > 1 else None)
     _launch(lib, plan, "backward", q, k, v, keep, src, do, stats, rowterm,
             dq, dk, dv, num_heads, rate, rng)
-    LAUNCHES_BWD["rng" if rng else "mask"] += 1
+    with _build.COUNT_LOCK:
+        LAUNCHES_BWD["rng" if rng else "mask"] += 1
     return dq, dk, dv
 
 

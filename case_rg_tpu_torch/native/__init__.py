@@ -133,6 +133,9 @@ class NativeWordPiece:
         self._lib = lib
         self._h = lib.wp_create(blob, len(blob), unk_id)
         self._buf = np.zeros(4096, np.int32)
+        # the output buffer is shared: one call at a time (the replicas of
+        # runtime/replicas.py featurize in their own threads)
+        self._lock = threading.Lock()
 
     def _fit_buf(self, n_bytes: int) -> None:
         # every emitted wordpiece id consumes >= 1 source character, so
@@ -144,14 +147,15 @@ class NativeWordPiece:
     def tokenize_ids(self, text: str, lower: bool = True,
                      max_chars: int = 100) -> np.ndarray:
         data = text.encode("ascii")   # caller guarantees ASCII
-        self._fit_buf(len(data))
-        while True:
-            n = self._lib.wp_tokenize(self._h, data, len(data),
-                                      1 if lower else 0, max_chars,
-                                      self._buf, len(self._buf))
-            if n >= 0:
-                return self._buf[:n].copy()
-            self._buf = np.zeros(len(self._buf) * 2, np.int32)
+        with self._lock:
+            self._fit_buf(len(data))
+            while True:
+                n = self._lib.wp_tokenize(self._h, data, len(data),
+                                          1 if lower else 0, max_chars,
+                                          self._buf, len(self._buf))
+                if n >= 0:
+                    return self._buf[:n].copy()
+                self._buf = np.zeros(len(self._buf) * 2, np.int32)
 
     def tokenize_ids_batch(self, texts, lower: bool = True,
                            max_chars: int = 100):
@@ -163,14 +167,15 @@ class NativeWordPiece:
         if texts:
             offs[1:] = np.cumsum([len(t) for t in texts])
         lens = np.zeros(max(len(texts), 1), np.int32)
-        self._fit_buf(len(blob))
-        while True:
-            n = self._lib.wp_tokenize_batch(
-                self._h, blob, offs, len(texts), 1 if lower else 0,
-                max_chars, self._buf, len(self._buf), lens)
-            if n >= 0:
-                return self._buf[:n].copy(), lens[: len(texts)].copy()
-            self._buf = np.zeros(len(self._buf) * 2, np.int32)
+        with self._lock:
+            self._fit_buf(len(blob))
+            while True:
+                n = self._lib.wp_tokenize_batch(
+                    self._h, blob, offs, len(texts), 1 if lower else 0,
+                    max_chars, self._buf, len(self._buf), lens)
+                if n >= 0:
+                    return self._buf[:n].copy(), lens[: len(texts)].copy()
+                self._buf = np.zeros(len(self._buf) * 2, np.int32)
 
     def __del__(self):
         try:

@@ -74,6 +74,11 @@ class Pipeline:
         package's ``{epoch}.ckpt``) onto ``device`` and build the predict
         program. Raises without a card unless ``device="cpu"``.
 
+        As the JAX pipeline's serving mesh, each batch splits by rows over
+        a replica of the model a device of a comma list ("cuda:0,cuda:1",
+        "cpu,cpu"); the first d serve, d = gcd(``batch_size``, the
+        devices) (``runtime/replicas.py``). "cuda" is one card.
+
         ``epoch``: int, ``"best"`` (model/best.json from --dev_eval
         training), ``"avg"`` (run --mode avg), or None for the latest.
         Model/data dims must match training (same flags as cli/serve.py).
@@ -83,13 +88,13 @@ class Pipeline:
         from .cli.serve import load_model
         from .config import DataConfig
         from .data.vocab import Vocabulary
-        from .device import resolve_device
-        from .runtime.continuous.base import HostCopy
-        from .runtime.inference import make_predict_fn
+        from .device import resolve_devices
+        from .runtime.inference import make_replicated_predict
+        from .runtime.replicas import Replicas
         from .train.checkpoint import (best_epoch, checkpoint_exists,
                                        latest_epoch)
 
-        resolve_device(device)
+        devs = resolve_devices(device, [batch_size])
         vocab = Vocabulary.load(os.path.join(prepared_dir, "vocab.txt"))
         dcfg = DataConfig(query_len=query_len, passage_len=passage_len,
                           num_passage=num_passage,
@@ -117,20 +122,15 @@ class Pipeline:
             num_heads=num_heads, max_target_length=max_target_length,
             beam_width=beam_width, min_window_size=min_window_size,
             num_windows=num_windows), vocab, epoch)
-        predict_fn = make_predict_fn(net, mcfg, max_target_length,
-                                     beam_width=beam_width,
-                                     early_exit=early_exit,
-                                     fast_argmax=fast_argmax,
-                                     decoding=decoding,
-                                     sample_seed=sample_seed,
-                                     temperature=temperature, top_k=top_k,
-                                     top_p=top_p, rank_only=rank_only,
-                                     device=device)
+        predict_fn = make_replicated_predict(
+            Replicas(net, devs), mcfg, max_target_length,
+            beam_width=beam_width, early_exit=early_exit,
+            fast_argmax=fast_argmax, decoding=decoding,
+            sample_seed=sample_seed, temperature=temperature, top_k=top_k,
+            top_p=top_p, rank_only=rank_only)
 
         def run_predict(batch):
-            out = predict_fn(batch)
-            keys = list(out)
-            return dict(zip(keys, HostCopy([out[k] for k in keys]).get()))
+            return predict_fn(batch).get()
 
         return cls(model_name=model, vocab=vocab, dcfg=dcfg,
                    run_predict=run_predict, batch_size=batch_size,

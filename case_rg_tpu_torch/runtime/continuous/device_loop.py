@@ -277,7 +277,8 @@ class DeviceLoopFns:
             lane.graph = None       # its pool goes before the next one
             scratch = lane.scratch()
             lane.graph = CapturedGraph(lambda: self._body(lane),
-                                       lambda: self._body(scratch))
+                                       lambda: self._body(scratch),
+                                       device=lane.device)
             lane.key = key
             self.captures.append(lane.graph.stats)
         return lane.graph

@@ -6,6 +6,10 @@ serving.
 * tmemnet -> {"answer", "rank"}: one encode gives the decode memories and
   the knowledge attention (the rank), except under beam search;
 * s2sa, gttp, glks -> {"answer"} through ``models/predict.py``.
+
+``make_replicated_predict`` runs the same function over ``Replicas``, one
+row block a device (the JAX package's predict over ``local_mesh`` with
+``shard_batch``).
 """
 
 from __future__ import annotations
@@ -63,6 +67,37 @@ def make_predict_fn(model, cfg: ModelConfig, max_len: int, *,
         batch = batch_to_device(batch, where)
         with torch.inference_mode():
             return body(batch)
+    return fn
+
+
+def make_replicated_predict(replicas, cfg: ModelConfig, max_len: int, *,
+                            decoding: str = "greedy", sample_seed: int = 0,
+                            **kw) -> Callable[[dict], "Pending"]:
+    """``make_predict_fn`` over ``replicas`` (``runtime/replicas.Replicas``):
+    a function batch -> ``Pending`` whose ``get()`` is the outputs as numpy
+    arrays. Each replica predicts a contiguous row block of the batch in its
+    own thread and starts its block's host copy there; ``get`` puts the
+    blocks back in row order. ``kw`` are ``make_predict_fn``'s options.
+
+    Sampled decoding draws the whole batch's row keys once a call
+    (``keys_from_seed(sample_seed, B, stream=call index)``, as one device
+    does) and gives each replica its rows' keys, so a split batch samples
+    what the unsplit batch samples. With one replica the function is
+    ``make_predict_fn``'s, its outputs copied to the host."""
+    from .replicas import Pending
+    fns = [make_predict_fn(m, cfg, max_len, decoding=decoding,
+                           sample_seed=sample_seed, device=d, **kw)
+           for m, d in zip(replicas.models, replicas.devices)]
+    if len(replicas) == 1:
+        return lambda batch: Pending([fns[0](batch)])
+    counter = itertools.count()
+
+    def fn(batch):
+        if decoding == "sample" and batch.get("sample_key") is None:
+            batch = dict(batch, sample_key=keys_from_seed(
+                sample_seed, _rows(batch), stream=next(counter)))
+        return Pending.of_blocks(replicas.map(
+            lambda i, blk: Pending([fns[i](blk)]), replicas.split(batch)))
     return fn
 
 

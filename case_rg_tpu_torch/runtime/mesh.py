@@ -25,17 +25,24 @@ own layout for the same thing, one process per card started by
 Without a process group every function is the single-process identity:
 ``process_index()`` 0, ``process_count()`` 1, no collective.
 
+In one process, ``local_replicas`` is the data axis of the JAX
+``local_mesh``: the devices that serving and testing run one replica of
+the model on each (``runtime/replicas.py``), d = gcd(every batch size,
+the devices named). A plain "cuda" names one card: replicas are asked
+for by a device list, since thread replicas serve slower than one card
+(PERF.md §6).
+
 Not ported yet (ROADMAP Queue 1 item 7b): the 'model' axis, i.e. the pool
 axis sharded over cards (``pool_sharding``, ``shard_batch(pool_axis=True)``)
-and vocabulary-dimension sharding (``param_sharding_tree``), and the
-serving mesh over a host's cards. ``parse_mesh_shape`` refuses a model
-axis above 1.
+and vocabulary-dimension sharding (``param_sharding_tree``).
+``parse_mesh_shape`` refuses a model axis above 1.
 """
 
 from __future__ import annotations
 
 import contextlib
 import datetime
+import math
 import os
 from typing import Dict, Iterable, List, Optional, Tuple
 
@@ -67,6 +74,37 @@ def local_device() -> Optional[torch.device]:
     """The card of this rank (``cuda:LOCAL_RANK``) once
     ``init_distributed`` ran on the card, else None."""
     return _DEVICE
+
+
+def local_replicas(sizes: Iterable[int] = (), device="cuda"
+                   ) -> List[torch.device]:
+    """The devices of this process's data axis (the JAX ``local_mesh``'s,
+    ``model=1``): the first d of the named devices, d = gcd(every size in
+    ``sizes``, their count), so every batch size splits evenly. Sizes of 0
+    are ignored; with none, every named device.
+
+    ``device``: "cuda" names one card (the current one; in a process
+    group, this rank's card: a rank does not replicate), "cuda:i" that
+    card, "cpu" one CPU replica, and a comma list ("cpu,cpu",
+    "cuda:0,cuda:0", "cuda:0,cuda:1") the replicas outright, a device a
+    replica. Raises without a card unless only the CPU is named."""
+    spec = str(device)
+    devs = [torch.device(x.strip()) for x in spec.split(",") if x.strip()]
+    if not devs:
+        raise ValueError(f"device {spec!r}: no device named")
+    if any(d.type == "cuda" for d in devs) and not torch.cuda.is_available():
+        raise RuntimeError(
+            "case_rg_tpu_torch: a CUDA device was requested but torch sees "
+            "none; pass device='cpu' to run on the CPU")
+    if is_distributed():
+        own = local_device()
+        return [own if own is not None and devs[0].type == "cuda"
+                and devs[0].index is None else devs[0]]
+    d = len(devs)
+    for n in sizes:
+        if n:
+            d = math.gcd(d, int(n))
+    return devs[:d]
 
 
 def init_distributed(device="cuda", timeout_s: float = 1800.0

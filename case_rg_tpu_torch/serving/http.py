@@ -10,13 +10,16 @@ within ``--max_wait_ms`` of each other coalesce into one device batch (up
 to ``--batch_size``). With ``--pool_buckets``, each coalesced batch runs at
 the smallest static pool size that fits its largest request.
 
-With ``--continuous`` one worker thread replaces the pair and is the only
-thread that touches the card: it featurizes, encodes, decodes, copies
-results to the host and detokenizes; handler threads touch only queues and
-host memory. That is what the device loop's CUDA-graph captures need
-(PyTorch captures in its "global" mode, in which another thread's CUDA
-call during a capture breaks it): a capture runs in the worker, or in the
-main thread with ``--warmup`` before the server binds.
+With ``--continuous`` one worker thread replaces the pair: it featurizes,
+encodes, decodes, copies results to the host and detokenizes; handler
+threads touch only queues and host memory. Over several replicas
+(``--device`` naming several devices) the worker hands the
+arrivals out and each replica's thread runs its own loop on its card
+(``serving/lanes.run_serving``); a device-loop capture runs in its
+replica's thread, or in the replicas' threads with ``--warmup`` before the
+server binds (``runtime/graphs.CapturedGraph``). The batched path's
+micro-batches coalesce as on one card and split by rows over the
+replicas.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import time
 from typing import Dict
 
 from .featurize import bucket_for, chunk_to_batch, parse_buckets
-from .lanes import make_lanes
+from .lanes import run_serving
 
 
 def serve_http(args, dcfg, responses_for, run_predict, vocab, bbuckets,
@@ -118,7 +121,7 @@ def serve_http(args, dcfg, responses_for, run_predict, vocab, bbuckets,
                 fail_items(items, e)
 
     def continuous_worker():
-        from ..runtime.continuous import QueueSource, run_continuous_multi
+        from ..runtime.continuous import QueueSource
 
         live = []   # items in slots, for failure cleanup
 
@@ -189,58 +192,15 @@ def serve_http(args, dcfg, responses_for, run_predict, vocab, bbuckets,
         # strand current waiters or future requests behind a dead thread
         # (the dispatcher/completer pair guards the same way)
         try:
-            src = QueueSource(reqq, stop)
-            device = cont.get("device_fns") is not None
-            if "buckets" in cont and device:
-                # device loop x pool buckets: one device ring + live state
-                # per static pool size; per round all lanes' megas
-                # dispatch before any harvest fetch. Streaming deltas
-                # arrive per mega (a mega runs K chunks per host round
-                # trip - nothing finer is observable).
-                from ..runtime.continuous.device_loop import \
-                    run_continuous_device_multi
-                from .lanes import make_device_lanes
-                dlanes, droute = make_device_lanes(
-                    cont, bs, cont["refill_size"], wrap=wrap_mb,
-                    key=lambda p: len(p["req"].get("passages", [])))
-                lane_holder["lanes"] = dlanes
-                run_continuous_device_multi(
-                    src, dlanes, droute, emit, args.max_target_length,
-                    ordered=False,
-                    on_mega=on_chunk, lookahead=cont["lookahead"],
-                    stream_cb=stream_cb)
-            elif "buckets" in cont:
-                lanes, route = make_lanes(
-                    cont, bs, cont["refill_size"], wrap=wrap_mb,
-                    key=lambda p: len(p["req"].get("passages", [])))
-                lane_holder["lanes"] = lanes
-                run_continuous_multi(src, lanes, route, emit,
-                                     ordered=False, on_chunk=on_chunk,
-                                     stream_cb=stream_cb,
-                                     async_harvest=cont.get(
-                                         "async_harvest", False))
-            elif device:
-                # device loop: harvest + refill run on the card between
-                # chunks (runtime/continuous/device_loop). Streaming
-                # deltas arrive once per mega from the harvest's live-row
-                # snapshot (one mega of lag with --lookahead)
-                from ..runtime.continuous.device_loop import \
-                    run_continuous_device
-                run_continuous_device(
-                    src, wrap_mb(cont["make_batch"]), cont["device_fns"],
-                    bs, cont["refill_size"], emit, args.max_target_length,
-                    ordered=False,
-                    on_mega=on_chunk, lookahead=cont["lookahead"],
-                    stream_cb=stream_cb)
-            else:
-                cont["run"](src, wrap_mb(cont["make_batch"]), cont["init"],
-                            cont["chunk"], cont["refill"], bs,
-                            cont["refill_size"], emit,
-                            ordered=False, on_chunk=on_chunk,
-                            lookahead=cont["lookahead"],
-                            refill_min=cont["refill_min"],
-                            async_harvest=cont.get("async_harvest", False),
-                            stream_cb=stream_cb)
+            holder: list = []
+            lane_holder["lanes"] = holder
+            run_serving(
+                QueueSource(reqq, stop), cont, emit, args.max_target_length,
+                ordered=False, on_chunk=on_chunk, stream_cb=stream_cb,
+                wrap=wrap_mb, key=lambda p: len(p["req"].get("passages", [])),
+                lane_holder=holder,
+                arrive=(None if cont.get("arrive") is None
+                        else lambda p: cont["arrive"](p["req"])))
         except Exception as e:
             print(f"[serve] continuous worker failed: {e!r}",
                   file=sys.stderr)
@@ -315,7 +275,7 @@ def serve_http(args, dcfg, responses_for, run_predict, vocab, bbuckets,
                         varz["request_latency_s"] = {
                             "p50": pct(0.50), "p90": pct(0.90),
                             "p99": pct(0.99), "n": len(ls)}
-                    if lane_holder:
+                    if lane_holder.get("lanes"):
                         # racy-but-safe snapshot (GIL list reads) of each
                         # continuous lane's live occupancy and queue depth
                         # (chunk-loop Lane counts occupied slots; device

@@ -45,3 +45,77 @@ def make_device_lanes(cont, bs: int, refill_size: int, wrap=None, key=None):
     def route(item):
         return lanes[bucket_for(getn(item), cont["buckets"])]
     return list(lanes.values()), route
+
+
+def run_lanes(source, cont, emit, max_len: int, *, ordered: bool = True,
+              on_chunk=None, stream_cb=None, wrap=None, key=None,
+              lane_holder=None):
+    """Drive one replica's continuous loop over ``source``: the chunk loop
+    or the device loop (``cont["device_fns"]``), one lane or a lane per pool
+    bucket (``cont["buckets"]``), at ``cont["batch_size"]`` rows and
+    ``cont["refill_size"]`` refills. ``wrap``/``key`` as ``make_lanes``';
+    the lanes made are appended to ``lane_holder``. Returns the loop's
+    stats."""
+    bs, refill = cont["batch_size"], cont["refill_size"]
+    device = cont.get("device_fns") is not None
+    if "buckets" in cont:
+        make = make_device_lanes if device else make_lanes
+        lanes, route = make(cont, bs, refill, wrap=wrap, key=key)
+        if lane_holder is not None:
+            lane_holder.extend(lanes)
+        if device:
+            from ..runtime.continuous.device_loop import \
+                run_continuous_device_multi
+            return run_continuous_device_multi(
+                source, lanes, route, emit, max_len, ordered=ordered,
+                on_mega=on_chunk, lookahead=cont["lookahead"],
+                stream_cb=stream_cb)
+        from ..runtime.continuous import run_continuous_multi
+        return run_continuous_multi(
+            source, lanes, route, emit, ordered=ordered, on_chunk=on_chunk,
+            stream_cb=stream_cb,
+            async_harvest=cont.get("async_harvest", False))
+    mb = cont["make_batch"] if wrap is None else wrap(cont["make_batch"])
+    if device:
+        from ..runtime.continuous.device_loop import run_continuous_device
+        return run_continuous_device(
+            source, mb, cont["device_fns"], bs, refill, emit, max_len,
+            ordered=ordered, on_mega=on_chunk, lookahead=cont["lookahead"],
+            stream_cb=stream_cb)
+    return cont["run"](
+        source, mb, cont["init"], cont["chunk"], cont["refill"], bs, refill,
+        emit, ordered=ordered, on_chunk=on_chunk,
+        lookahead=cont["lookahead"], refill_min=cont["refill_min"],
+        async_harvest=cont.get("async_harvest", False), stream_cb=stream_cb)
+
+
+def run_serving(source, cont, emit, max_len: int, *, ordered: bool = True,
+                on_chunk=None, arrive=None, **kw):
+    """``run_lanes`` on one device, or one ``run_lanes`` a replica over
+    ``cont["replicas"]`` (each replica's own continuous dict, its share of
+    the rows; ``runtime/replicas.run_continuous_replicated`` hands the
+    arrivals out and restores their order). ``arrive(item)`` is called for
+    each request in arrival order (replicated serving only). ``on_chunk``
+    gets the chunks (or megas) of every replica together."""
+    reps = cont.get("replicas")
+    if not reps:
+        return run_lanes(source, cont, emit, max_len, ordered=ordered,
+                         on_chunk=on_chunk, **kw)
+    from ..runtime.replicas import run_continuous_replicated
+    counts = [0] * len(reps)
+
+    def runner(i, c):
+        def tick(n):
+            counts[i] = n
+            on_chunk(sum(counts))
+
+        def run(src, em):
+            return run_lanes(src, c, em, max_len, ordered=False,
+                             on_chunk=None if on_chunk is None else tick,
+                             **kw)
+        return run
+    lanes = max(len(cont.get("buckets", ())), 1)
+    return run_continuous_replicated(
+        source, [runner(i, c) for i, c in enumerate(reps)], emit,
+        [lanes * (c["batch_size"] + c["refill_size"]) for c in reps],
+        ordered=ordered, replicas=cont["replica_set"], arrive=arrive)

@@ -13,7 +13,8 @@ Two loops:
   buffer.
 * ``run_offline_continuous`` - drive the continuous decode loop
   (``runtime/continuous``: the chunk loop or the device loop) from a file
-  or a long-lived stdin pipe.
+  or a long-lived stdin pipe, one loop a replica over the devices named
+  (``serving/lanes.run_serving``).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from typing import Dict, List
 
 from .featurize import bucket_for, chunk_to_batch, parse_buckets, \
     read_chunks, read_requests
-from .lanes import make_lanes
+from .lanes import run_serving
 
 
 def run_offline_continuous(src, sink, args, dcfg, cont, responses_for):
@@ -58,33 +59,8 @@ def run_offline_continuous(src, sink, args, dcfg, cont, responses_for):
     else:
         source = read_requests(src)
 
-    device = cont.get("device_fns") is not None
-    if "buckets" in cont and device:
-        from ..runtime.continuous.device_loop import \
-            run_continuous_device_multi
-        from .lanes import make_device_lanes
-        dlanes, droute = make_device_lanes(cont, args.batch_size,
-                                           args.refill)
-        return run_continuous_device_multi(
-            source, dlanes, droute, emit, args.max_target_length,
-            lookahead=cont["lookahead"])
-    if "buckets" in cont:
-        from ..runtime.continuous import run_continuous_multi
-        lanes, route = make_lanes(cont, args.batch_size, args.refill)
-        return run_continuous_multi(
-            source, lanes, route, emit,
-            async_harvest=cont.get("async_harvest", False))
-    if device:
-        from ..runtime.continuous.device_loop import run_continuous_device
-        return run_continuous_device(
-            source, cont["make_batch"], cont["device_fns"], args.batch_size,
-            args.refill, emit, args.max_target_length,
-            lookahead=cont["lookahead"])
-    return cont["run"](
-        source, cont["make_batch"], cont["init"], cont["chunk"],
-        cont["refill"], args.batch_size, args.refill, emit,
-        lookahead=cont["lookahead"], refill_min=cont["refill_min"],
-        async_harvest=cont.get("async_harvest", False))
+    return run_serving(source, cont, emit, args.max_target_length,
+                       arrive=cont.get("arrive"))
 
 
 def run_offline_batched(src, sink, args, dcfg, vocab, bbuckets,

@@ -99,7 +99,7 @@ from ..config import TrainConfig
 from ..data.batching import Batcher
 from ..device import batch_to_device, resolve_device
 from ..runtime import mesh
-from ..runtime.continuous.base import HostCopy
+from ..runtime.replicas import Pending
 from .checkpoint import (best_epoch_record, checkpoint_exists, latest_epoch,
                          load_checkpoint, save_best, save_checkpoint)
 from .precision import cast_params
@@ -628,19 +628,24 @@ def predict(arrays: Dict[str, np.ndarray],
     (parameters or EMA, cast or not) are chosen when it is loaded; the JAX
     method takes them from a train state. Up to ``pipeline_depth`` batches
     are in flight: each batch's outputs start their copy into pinned host
-    memory at dispatch (``HostCopy``) and are read ``pipeline_depth``
+    memory at dispatch (``HostCopy``, ``replicas.Pending``) and are read ``pipeline_depth``
     batches later, as ``cli/serve`` fetches them. In a process group each
-    rank predicts its own rows, ``[rank::count]``."""
+    rank predicts its own rows, ``[rank::count]``.
+
+    Without one, ``predict_fn`` may be
+    ``runtime.inference.make_replicated_predict``'s: a batch split over the
+    host's replicas, its outputs a ``Pending`` whose row blocks' host
+    copies started in the replicas' threads."""
     inflight: deque = deque()
     for batch in Batcher(arrays, batch_size, shuffle=False,
                          process_index=mesh.process_index(),
                          process_count=mesh.process_count()).epoch(0):
         out = predict_fn(_device_fields(batch))
-        keys = list(out)
-        inflight.append((batch, keys, HostCopy([out[k] for k in keys])))
+        inflight.append((batch, out if isinstance(out, Pending)
+                         else Pending([out])))
         if len(inflight) >= max(pipeline_depth, 1):
-            b, ks, hc = inflight.popleft()
-            yield b, dict(zip(ks, hc.get()))
+            b, pend = inflight.popleft()
+            yield b, pend.get()
     while inflight:
-        b, ks, hc = inflight.popleft()
-        yield b, dict(zip(ks, hc.get()))
+        b, pend = inflight.popleft()
+        yield b, pend.get()

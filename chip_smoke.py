@@ -3,6 +3,7 @@
 card.
 
     python3 chip_smoke.py        # from the repository root; needs one card
+    python3 chip_smoke.py --only-replicas   # phase 17 alone (several cards)
 
 In order it
   1. prints the card's name and power limit, builds the CUDA kernels from
@@ -203,7 +204,7 @@ In order it
      seed 0 with noisy biases and gains) on CAsT shapes (query or context
      60, a pool of 10x100 or its 1000 positions as background, 40-step
      decode, B=64; phase 7's requests in each model's fields). Per model:
-     (a) two greedy batches through make_predict_fn, every launch counter
+     (a) a greedy batch through make_predict_fn, every launch counter
      set to 0 just before and read just after and held to the model's
      launches (OTHER_LAUNCHES), then the same batches with each kernel's
      wrapper swapped for its plain version (answers gated as in phase 4,
@@ -266,8 +267,40 @@ In order it
      programs again on that batch against their live predicts (the
      early-exit one's steps run below T_ANS, gated), and the loop body's
      copies of the carried caches (bytes and µs a step);
- 17. prints one JSON line {"kernels": [...]} and, last, the device line
+ 17. serves and tests over several replicas ("serving over cards", after
+     phase 13b, on phases 4-11's model, requests and one-card runs and
+     phases 11 and 13's files, which are removed after it;
+     runtime/replicas.py): two replicas on cuda:0 (two threads, a stream
+     each), and with more cards also one a card (cuda:0,cuda:1; four with
+     four). (a) make_replicated_predict greedy dense and pallas, sampled,
+     beam 4 and rank-only on a B=64 batch: each replica's rows equal one
+     replica's predict on its row block bit for bit (a sampled call's keys
+     drawn once for the batch), each kernel's launches the blocks' sum, the
+     merged batch against one card at the serving gates (the token gates
+     for every mode with answers); requests/s and device busy/idle share
+     of one replica against the replicas, in turns; the host threads' CPU
+     ms against the wall ms, of one replica and of the replicas, these
+     under the GIL's switch interval at 0.1 and 20 ms and with one
+     intra-op thread a replica; the card guard's host µs a launch;
+     (b) the 512 continuous requests over the replicas (a loop a replica at
+     B/d rows, REFILL/d refills): chunk loop and device loop (captures a
+     replica; eager launches plus each capture's record times its
+     replays), both with launches as the one-card formulas give them,
+     sampled chunk loop, each answer against the one-card runs of phases 5-10 (the
+     share equal token for token; the agreement gates); (c) cli/serve on
+     phase 11's text requests over the replicas, batched (equal to one
+     card at B/d response for response) and the device loop (against
+     phase 11's); (d) cli/run --mode test --avg_only on phase 13's files
+     over the replicas (equal to one process at B/d). ``python3
+     chip_smoke.py --only-replicas`` runs this phase alone with what it
+     needs of phases 1-11, without (d), for a machine with several cards;
+ 18. prints one JSON line {"kernels": [...]} and, last, the device line
      {"ok": true, "device": {...}}.
+
+Phase 17's room was made by cutting phases 5, 7, 14 and 15: the chunk
+loop's reverse-order repeat of pallas and dense, the device-loop knee at
+(4, 16), the other models' second B=64 batch, and a second load of the
+greedy archive in 15 (b), which serves the program 15 (a) loaded.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It also fails when torch sees no card, and when it stands alone without the
@@ -1730,11 +1763,8 @@ def serve_continuous(dev, cfg, model, reqs, caps):
           and vs_one["rank_max_ulps"] <= RANK_ULPS,
           f"continuous vs one-shot predict: {vs_one}")
     res["vs_one_shot"] = vs_one
-    # pallas and dense once more, in the reverse order (pallas, dense, ...,
-    # dense, pallas): the host's clock drifts with the shared host
-    _, res["dense_again"] = single(mode="dense")
-    got, res["base_again"] = single()
-    same_as_base(got, "base again")
+    # (the reverse-order repeat of pallas and dense was cut to make room
+    # for phase 17: compare their times within a call with care)
     res["profile"] = profile_device(lambda k: single(k=k), [2 * B])
     return res, base
 
@@ -1952,7 +1982,7 @@ def serve_continuous_sampled(dev, cfg, model, reqs, caps):
 # refill width REFILL and batch B as in the chunk loop; the (steps, K)
 # pairs whose requests/s decide the knee again on the card
 DL_STEPS, DL_K, DL_RING = 4, 8, 256
-DL_KNEE = ((4, 8), (8, 4), (4, 16))
+DL_KNEE = ((4, 8), (8, 4))          # (4, 16) cut to make room for phase 17
 SPIN_CYCLES = int(1e8)                 # ~50 ms at 1.98 GHz
 
 
@@ -2650,9 +2680,10 @@ def serve_text(dev):
               and n["additive_scores"] == 2 * steps
               and n["fused_mha"] > 0 and n["fused_mha"] % MHA_PER_ENCODE == 0,
               f"text serving {name}: launches {n}")
-    shutil.rmtree(TEXT_DIR, ignore_errors=True)
     res["modes"] = runs
     res["phase_s"] = time.perf_counter() - t_phase
+    # TEXT_DIR stays for phase 17, which serves it over the replicas
+    res["ctx"] = {"common": common, "modes": modes, "got": got}
     return res
 
 
@@ -3598,7 +3629,8 @@ def raw_files(dev, bare_ms):
         {k: res[k] for k in ("test", "avg_s", "evaluate_s", "evaluate")}),
         flush=True)
     res["phase_s"] = time.perf_counter() - t_phase    # RAW_DIR stays for
-    return res                                        # phase 13b
+    res["ctx"] = {"test_args": test_args, "out": out}  # phases 13b and 17
+    return res
 
 
 # ---- phase 13b: data-parallel training and testing (runtime/mesh) ----
@@ -4145,7 +4177,7 @@ def data_parallel(dev, card):
 OTHER_MODELS = ("masque", "s2sa", "gttp", "glks", "tmemnet")
 RANK_MODELS = ("masque", "tmemnet")
 COPY_MODELS = ("masque", "gttp", "glks")      # fast_argmax="pallas" combines
-# 128 requests (two one-shot batches, the continuous loops' stream) and 3
+# 128 requests (a one-shot batch, the continuous loops' stream) and 3
 # train steps a model: cut from 256 and 10 to make room for phase 16, and
 # from 6 steps for phase 13b (a GRU model's step takes about 4 s of host
 # time). GLKS keeps 6: after 3 its loss without dropout had risen (16.73 ->
@@ -4334,7 +4366,8 @@ def serve_other(dev, name):
     perturb_affine(model, torch.Generator(device=dev).manual_seed(1))
     reqs, caps = make_requests(np.random.RandomState(3), OTHER_REQUESTS)
     data = as_model(name, reqs)
-    batches = [take(data, slice(i * B, (i + 1) * B)) for i in range(2)]
+    # one B=64 batch (two until phase 17 needed the room)
+    batches = [take(data, slice(0, B))]
     ranked = name in RANK_MODELS
     res = {"params": sum(p.numel() for p in model.parameters())}
 
@@ -4908,6 +4941,8 @@ def export_and_router(dev):
                                        "ops", "nodes")}
             rec["artifact_mb"] = rep["bytes"] / 1e6
             art = rep.pop("artifact")
+            if name == "greedy":
+                loaded = art            # (b) serves it: one load a phase
         check(set(rec["ops"]) == {k for k, n in launches.items() if n},
               f"export {name}: ops in the graph {rec['ops']}")
         rec.update(exported_vs_live(art, live, batches, launches, name))
@@ -4923,10 +4958,21 @@ def export_and_router(dev):
     torch.cuda.empty_cache()
 
     # (b) cli/serve --from_export = cli/serve --no-early_exit from the
-    # checkpoint, on the text requests
-    got_art, run_art = serve_text_mode(
-        ["--prepared_dir", prep, "--from_export", arts["greedy"], "--input",
-         req_path, "--warmup"], [], os.path.join(EXPORT_DIR, "b_art.jsonl"))
+    # checkpoint, on the text requests. The archive is the one (a) loaded
+    # from the file (a load takes 20-23 s at these widths; cut to one a
+    # phase to make room for phase 17)
+    from case_rg_tpu_torch.runtime import exported as exported_mod
+    real_load = exported_mod.load_exported
+    exported_mod.load_exported = lambda path, platforms: (
+        loaded if path == arts["greedy"] else real_load(path, platforms))
+    try:
+        got_art, run_art = serve_text_mode(
+            ["--prepared_dir", prep, "--from_export", arts["greedy"],
+             "--input", req_path, "--warmup"], [],
+            os.path.join(EXPORT_DIR, "b_art.jsonl"))
+    finally:
+        exported_mod.load_exported = real_load
+    del loaded
     got_ck, run_ck = serve_text_mode(
         common + ["--input", req_path, "--warmup"],
         ["--no-early_exit"], os.path.join(EXPORT_DIR, "b_ck.jsonl"))
@@ -5309,7 +5355,459 @@ def early_exit_export(dev, cfg, model, batches, fixed, fixed_art):
     return rec
 
 
-def main() -> int:
+# ---- phase 17: serving over cards (runtime/replicas) ----
+
+# Serving and testing split each batch by rows over one replica of the
+# model a card (the JAX serving mesh's data axis). On a one-card machine
+# the phase runs two replicas on cuda:0 (two threads, a stream each); with
+# more cards also one a card (cuda:0,cuda:1).
+REPLICA_BATCHES = 1           # B=64 batches a decode mode (2 timed)
+REPLICA_SEED = 21             # their requests
+REPLICA_SAMPLE_SEED = 17
+REPLICA_MODES = {
+    "greedy_dense": {}, "greedy_pallas": {"fast_argmax": "pallas"},
+    "sampled": dict(decoding="sample", sample_seed=REPLICA_SAMPLE_SEED,
+                    **SAMPLE_CONTROLS),
+    "beam4": {"beam_width": BEAM_WIDTH}, "rank_only": {"rank_only": True}}
+
+
+def replica_specs():
+    specs = ["cuda:0,cuda:0"]
+    n = torch.cuda.device_count()
+    if n > 1:
+        specs.append("cuda:0,cuda:1")
+    if n >= 4:
+        specs.append("cuda:0,cuda:1,cuda:2,cuda:3")
+    return specs
+
+
+def host_out(out):
+    """A predict's outputs as host tensors (bf16 as f32, as HostCopy)."""
+    return {k: (v.float() if v.dtype == torch.bfloat16 else v).cpu()
+            for k, v in out.items()}
+
+
+def replica_agreement(merged, full):
+    """``agreement`` of merged replica outputs with one card's, for modes
+    with or without answers."""
+    if "answer" in merged[0]:
+        return agreement(merged, full)
+    ulps = max(bf16_ulps(m["rank"], f["rank"])[0]
+               for m, f in zip(merged, full))
+    return {"rank_max_ulps": ulps}
+
+
+def replicas_predict(dev, cfg, model, spec, witness):
+    """(a) make_replicated_predict in each REPLICA_MODES mode over the
+    replicas of ``spec``: each replica's rows equal one replica's predict
+    on the same row block bit for bit (the batch's sampling keys drawn once
+    a call, a block its rows' keys), the kernels' launches a batch the sum
+    over the blocks, and the merged batch held to one card at B=64 by the
+    serving gates (rank within RANK_ULPS, token agreement beside the
+    exact-sum ``witness``). Then requests/s and device busy/idle share of
+    one replica against the replicas, greedy dense, in turns."""
+    from case_rg_tpu_torch.decode.loops import keys_from_seed
+    from case_rg_tpu_torch.device import resolve_devices
+    from case_rg_tpu_torch.runtime.inference import (make_predict_fn,
+                                                     make_replicated_predict)
+    from case_rg_tpu_torch.runtime.replicas import Replicas
+    reps = Replicas(model, resolve_devices(spec, [B]))
+    d, res = len(reps), {}
+    n = B // d
+    rng = np.random.RandomState(REPLICA_SEED)
+    batches = [make_batch(rng) for _ in range(REPLICA_BATCHES)]
+    try:
+        for name, kw in REPLICA_MODES.items():
+            fn = make_replicated_predict(reps, cfg, T_ANS, **kw)
+            one = make_predict_fn(model, cfg, T_ANS, device=dev, **kw)
+            sampled = kw.get("decoding") == "sample"
+            fn(batches[0]).get()                     # warm-up: call 0
+            torch.cuda.synchronize()
+            reset_kernel_counts()
+            merged = [fn(bt).get() for bt in batches]
+            torch.cuda.synchronize()
+            launches = kernel_counts()
+            keyed = [dict(bt, sample_key=keys_from_seed(
+                REPLICA_SAMPLE_SEED, B, stream=1 + j).numpy())
+                if sampled else bt for j, bt in enumerate(batches)]
+            reset_kernel_counts()
+            same = 0
+            for m, bt in zip(merged, keyed):
+                for i in range(d):
+                    ref = host_out(one(take(bt, slice(i * n, (i + 1) * n))))
+                    same += all(np.array_equal(m[k][i * n:(i + 1) * n],
+                                               ref[k].numpy()) for k in ref)
+            torch.cuda.synchronize()
+            block_launches = kernel_counts()
+            check(same == d * len(batches),
+                  f"replicas {spec} {name}: {d * len(batches) - same} row "
+                  "blocks differ from one replica's predict on them")
+            check(launches == block_launches and any(launches.values()),
+                  f"replicas {spec} {name}: launches {launches}, the blocks "
+                  f"on one replica {block_launches}")
+            full = [host_out(one(bt)) for bt in keyed]
+            vs = replica_agreement([{k: torch.as_tensor(v) for k, v in
+                                     m.items()} for m in merged], full)
+            check(vs["rank_max_ulps"] <= RANK_ULPS,
+                  f"replicas {spec} {name} vs one card: {vs}")
+            if "token_agreement" in vs:        # every mode with answers
+                check(vs["token_agreement"] >= MIN_TOKEN_AGREEMENT
+                      and vs["first_token_agreement"]
+                      >= MIN_FIRST_TOKEN_AGREEMENT,
+                      f"replicas {spec} {name} vs one card: {vs}")
+            if name.startswith("greedy"):      # rounding alone, as witnessed
+                for key in ("token_agreement", "first_token_agreement"):
+                    check(vs[key] >= witness[key] - AGREEMENT_SLACK,
+                          f"replicas {spec} {name} vs one card: {vs}, the "
+                          f"exact-sum witness {witness}")
+            res[name] = {"launches": launches, "blocks_bit_equal": same,
+                         "vs_one_card": vs}
+
+        # requests/s and busy/idle share: one replica against the replicas,
+        # greedy dense, 2 x REPLICA_BATCHES batches each, in turns
+        alone = Replicas(model, [dev])
+        fns = {1: make_replicated_predict(alone, cfg, T_ANS),
+               d: make_replicated_predict(reps, cfg, T_ANS)}
+        rate = {1: [], d: []}
+        timed_batches = (batches * 2)[:2]
+        for k in (1, d, d, 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pend = [fns[k](bt) for bt in timed_batches]
+            for p in pend:
+                p.get()
+            torch.cuda.synchronize()
+            rate[k].append(len(timed_batches) * B
+                           / (time.perf_counter() - t0))
+        res["requests_per_s"] = {f"{k} replica(s)": v for k, v in rate.items()}
+        res["profile"] = {f"{k} replica(s)": {
+            x: v for x, v in profile_device(
+                lambda bt, f=fns[k]: f(bt).get(), batches).items()
+            if x != "top_kernels"} for k in (1, d)}
+        res["host_threads"] = replica_host_threads(
+            alone, reps, fns[1], fns[d], timed_batches)
+        res["guard"] = guard_cost(dev, res["greedy_dense"]["launches"], d)
+    finally:
+        reps.close()
+    return res
+
+
+def host_times(reps, fn, batches) -> dict:
+    """``fn`` over ``batches``, a batch at a time: wall ms a batch, each
+    replica thread's CPU ms a batch (``time.thread_time`` read in the
+    thread), and the process's CPU ms a batch (every thread's, the
+    intra-op pools' too)."""
+    d = len(reps)
+    cpu = lambda: reps.map(lambda i, _: time.thread_time(), [None] * d)
+    torch.cuda.synchronize()
+    c0, p0, t0 = cpu(), time.process_time(), time.perf_counter()
+    for bt in batches:
+        fn(bt).get()
+    torch.cuda.synchronize()
+    t1, p1, c1 = time.perf_counter(), time.process_time(), cpu()
+    n = len(batches)
+    return {"wall_ms": (t1 - t0) * 1e3 / n,
+            "thread_cpu_ms": [(b - a) * 1e3 / n for a, b in zip(c0, c1)],
+            "process_cpu_ms": (p1 - p0) * 1e3 / n}
+
+
+def replica_host_threads(alone, reps, one, fn, batches) -> dict:
+    """What the replicas' host threads spend a greedy batch on: one replica
+    against d (``host_times``), then d under the GIL's switch interval at
+    0.1 ms and 20 ms (the default is 5 ms), and with one intra-op CPU
+    thread a replica. A thread that waits for the GIL or for the card is
+    off the CPU: its CPU ms fall short of the wall ms."""
+    d = len(reps)
+    switch, threads = sys.getswitchinterval(), torch.get_num_threads()
+    res = {"intra_op_threads": threads, "switch_interval_ms": switch * 1e3,
+           "1 replica": host_times(alone, one, batches),
+           f"{d} replicas": host_times(reps, fn, batches)}
+    try:
+        for s in (1e-4, 2e-2):
+            sys.setswitchinterval(s)
+            res[f"{d} replicas, switch {s * 1e3:g} ms"] = host_times(
+                reps, fn, batches)
+    finally:
+        sys.setswitchinterval(switch)
+    reps.map(lambda i, _: torch.set_num_threads(1), [None] * d)
+    try:
+        res[f"{d} replicas, 1 intra-op thread each"] = host_times(
+            reps, fn, batches)
+    finally:
+        reps.map(lambda i, _: torch.set_num_threads(threads), [None] * d)
+    return res
+
+
+def guard_cost(dev, launches, d) -> dict:
+    """The host time of the kernel wrappers' card guard
+    (``kernels/_build.on_input_card`` around a launcher that does nothing)
+    with the input's card current, against the bare call, a launch and a
+    one-card greedy batch (``launches``: a batch's kernel launches over d
+    replicas, each replica's block launching what one card's batch
+    launches)."""
+    from case_rg_tpu_torch.kernels import _build
+    x, n = torch.zeros(1, device=dev), 20000
+
+    def bare(x):
+        return x
+    guarded = _build.on_input_card(bare)
+
+    def per_call(fn):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(x)
+        return (time.perf_counter() - t0) * 1e6 / n
+    us = min(per_call(guarded) for _ in range(3)) \
+        - min(per_call(bare) for _ in range(3))
+    per_batch = sum(launches.values()) // (REPLICA_BATCHES * d)
+    return {"us_per_launch": us, "launches_per_batch": per_batch,
+            "ms_per_batch": us * per_batch / 1e3}
+
+
+def replicas_continuous(dev, cfg, model, reqs, caps, spec, chunk_base,
+                        sampled_base):
+    """(b) The N_REQUESTS continuous requests over the replicas of ``spec``
+    (run_continuous_replicated: a loop a replica at B/d rows and REFILL/d
+    refills): the chunk loop (launch counters set to 0 just before and read
+    just after, as the one-card formula gives them; the replicas' first
+    run, so its time includes their first calls), the sampled chunk loop
+    and the device loop (ring DL_RING/d; warmed up, then timed). Each
+    answer against the one-card run's (``chunk_base``, ``sampled_base``;
+    the device loop = the chunk loop on one card): the share equal token
+    for token, and the agreement gates."""
+    from case_rg_tpu_torch.device import resolve_devices
+    from case_rg_tpu_torch.runtime.continuous import (
+        make_continuous_fns, make_device_loop_fns, run_continuous,
+        run_continuous_device)
+    from case_rg_tpu_torch.runtime.replicas import (Replicas,
+                                                    run_continuous_replicated)
+    n = len(caps)
+    reps = Replicas(model, resolve_devices(spec, [B, REFILL]))
+    d = len(reps)
+    b, r = B // d, REFILL // d
+    keys = sample_keys(n)
+    res = {}
+
+    def over(runs):
+        return timed(lambda emit: run_continuous_replicated(
+            items(n), runs, emit, [b + r] * d, replicas=reps), n)
+
+    def chunk_runs(sampling):
+        kw = dict(decoding="sample", **SAMPLE_CONTROLS) if sampling else \
+            dict(fast_argmax="pallas")
+        mb = batch_maker(reqs, caps, keys if sampling else None)
+        fns = [make_continuous_fns(m, T_ANS, CHUNK_STEPS, device=dv, **kw)
+               for m, dv in zip(reps.models, reps.devices)]
+        return [lambda src, em, f=f: run_continuous(
+            src, mb, *f, batch_size=b, refill=r, emit=em, ordered=False)
+            for f in fns]
+
+    def versus(got, base, what):
+        equal = sum(np.array_equal(got[i][0], base[i][0]) for i in range(n))
+        vs = dict(answer_agreement(got, base, caps, cfg.eos_id),
+                  answers_equal=equal)
+        check(vs["token_agreement"] >= MIN_TOKEN_AGREEMENT
+              and vs["first_token_agreement"] >= MIN_FIRST_TOKEN_AGREEMENT,
+              f"replicas {spec} {what} vs one card: {vs}")
+        return vs
+
+    try:
+        runs = chunk_runs(False)
+        reset_kernel_counts()
+        got, stats = over(runs)
+        launches = kernel_counts()
+        steps = CHUNK_STEPS * stats["chunks"]
+        want = {"fused_mha": MHA_PER_ENCODE * (d + stats["refills"]),
+                "stack_step": steps, "combine_copy_mass": steps,
+                "single_query_mha": 2 * DEC_LAYERS * steps,
+                "additive_scores": 2 * steps}
+        check(launches == want, f"replicas {spec} continuous launches "
+              f"{launches}, expected {want}")
+        res["chunk_loop"] = dict(stats, launches=launches,
+                                 vs_one_card=versus(got, chunk_base,
+                                                    "chunk loop"))
+        got, stats = over(chunk_runs(True))
+        res["sampled_chunk_loop"] = dict(stats, vs_one_card=versus(
+            got, sampled_base, "sampled chunk loop"))
+        dfns = [make_device_loop_fns(m, T_ANS, DL_STEPS, DL_K, DL_RING // d,
+                                     fast_argmax="pallas", device=dv)
+                for m, dv in zip(reps.models, reps.devices)]
+        mb = batch_maker(reqs, caps)
+        runs = [lambda src, em, f=f: run_continuous_device(
+            src, mb, f, batch_size=b, refill=r, emit=em, max_len=T_ANS,
+            ordered=False, lookahead=True) for f in dfns]
+        timed(lambda emit: run_continuous_replicated(    # warm-up: captures
+            items(WARM_REQUESTS), runs, emit, [b + r] * d, replicas=reps),
+            WARM_REQUESTS)
+        replays = [c["replays"] for f in dfns for c in f.captures]
+        reset_kernel_counts()
+        got, stats = over(runs)
+        eager = kernel_counts()
+        caps_ = [c for f in dfns for c in f.captures]
+        # a capture records its own thread's launches (runtime/graphs.py),
+        # so the replays give the loop's launches exactly, as in phase 9
+        recorded = {k: sum(c["launches"][k] * (c["replays"] - r0)
+                           for c, r0 in zip(caps_, replays)) for k in eager}
+        launches = {k: eager[k] + recorded[k] for k in eager}
+        steps_run = DL_STEPS * DL_K * stats["megas"]
+        want = {"fused_mha": MHA_PER_ENCODE * (d + stats["refills"]),
+                "stack_step": steps_run, "combine_copy_mass": steps_run,
+                "single_query_mha": 2 * DEC_LAYERS * steps_run,
+                "additive_scores": 2 * steps_run}
+        n_replays = sum(c["replays"] - r0 for c, r0 in zip(caps_, replays))
+        check(len(caps_) == d and n_replays == stats["megas"]
+              and launches == want,
+              f"replicas {spec} device loop: captures {len(caps_)}, "
+              f"{n_replays} replays for {stats['megas']} megas, launches "
+              f"{launches} (eager {eager}), expected {want}")
+        res["device_loop"] = dict(stats, captures=len(caps_),
+                                  launches_eager=eager,
+                                  launches_by_replay=recorded,
+                                  capture_s=[c["capture_s"] for c in caps_],
+                                  vs_one_card=versus(got, chunk_base,
+                                                     "device loop"))
+    finally:
+        reps.close()
+    return res
+
+
+def replicas_text(spec, text):
+    """(c) cli/serve on phase 11's 256 text requests over the replicas of
+    ``spec``: batched at B=64, equal response for response to one card
+    serving at B/d (each replica's rows are one card's batch); the device
+    loop (K 8, 4 steps, pool buckets, lookahead) against phase 11's
+    one-card JSONL: the share of equal responses, and the agreement of
+    answers word for word."""
+    common, modes, got = text["common"], text["modes"], text["got"]
+    d = spec.count(",") + 1
+    res = {}
+    per_card = common + ["--batch_size", str(B // d)]
+    want, _ = serve_text_mode(per_card, [],
+                              os.path.join(TEXT_DIR, "per_card.jsonl"))
+    reset_kernel_counts()
+    got_b, run = serve_text_mode(common + ["--device", spec], [],
+                                 os.path.join(TEXT_DIR, "replicas_a.jsonl"))
+    launches = kernel_counts()
+    same_responses(got_b, want, f"replicas {spec} batched vs one card at "
+                   f"B={B // d}")
+    check(launches["stack_step"] > 0 and launches["fused_mha"] > 0,
+          f"replicas {spec} text batched: launches {launches}")
+    res["a_batched"] = dict(run.report(len(want)), launches=launches)
+    got_c, run = serve_text_mode(common + ["--device", spec],
+                                 modes["c_device_loop"],
+                                 os.path.join(TEXT_DIR, "replicas_c.jsonl"))
+    ref = got["c_device_loop"]
+    equal = sum(g == w for g, w in zip(got_c, ref))
+    words = sum(a == b for g, w in zip(got_c, ref)
+                for a, b in zip(g["answer"].split(), w["answer"].split()))
+    total = sum(len(w["answer"].split()) for w in ref)
+    check(len(got_c) == len(ref) and [g["id"] for g in got_c]
+          == [w["id"] for w in ref] and words >= MIN_TOKEN_AGREEMENT * total,
+          f"replicas {spec} text device loop: {equal} of {len(ref)} equal, "
+          f"{words} of {total} words")
+    res["c_device_loop"] = dict(run.report(len(ref)), responses_equal=equal,
+                                words_equal=words, words=total)
+    return res
+
+
+def replicas_test(spec, raw):
+    """(d) cli/run --mode test --avg_only on phase 13's checkpoints over the
+    replicas of ``spec`` at B=64, batched: its result files equal one
+    process's at B/d (each replica's rows are that process's batch), the
+    serving kernels launched."""
+    from case_rg_tpu_torch.cli import run as cli_run
+    test_args, out = raw["test_args"], raw["out"]
+    d = spec.count(",") + 1
+    dirs = {}
+    for name in ("replicas", "per_card"):
+        dirs[name] = os.path.join(RAW_DIR, f"test_{name}_{d}")
+        os.makedirs(dirs[name])
+        os.symlink(os.path.join(out, "model"),
+                   os.path.join(dirs[name], "model"))
+    args = lambda name: [x if x != out else dirs[name] for x in test_args]
+    cli_run.main(args("per_card") + ["--avg_only", "--batch_size",
+                                     str(B // d)])
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    cli_run.main(args("replicas") + ["--avg_only", "--device", spec])
+    secs = time.perf_counter() - t0
+    launches = kernel_counts()
+    check(launches["stack_step"] > 0 and launches["fused_mha"] > 0,
+          f"replicas {spec} test: launches {launches}")
+    ties = same_result_files(os.path.join(dirs["replicas"], "result"),
+                             os.path.join(dirs["per_card"], "result"),
+                             f"replicas {spec} test vs one process")
+    return {"s": secs, "launches": launches, "near_ties": ties,
+            "files": sorted(os.listdir(os.path.join(dirs["replicas"],
+                                                    "result")))}
+
+
+def serving_over_cards(dev, cfg, model, reqs, caps, chunk_base,
+                       sampled_base, witness, text, raw):
+    """Phase 17: (a)-(d) above for every spec of ``replica_specs`` ((d)
+    only where phase 13's files are given: ``raw``)."""
+    auto_routing()           # the earlier phases' CLIs set the switches
+    t_phase = time.perf_counter()
+    res = {"specs": replica_specs(), "cards": torch.cuda.device_count()}
+    for spec in res["specs"]:
+        t0 = time.perf_counter()
+        one = {"predict": replicas_predict(dev, cfg, model, spec, witness)}
+        print(f"serving over cards {spec} predict: "
+              + json.dumps(one["predict"]), flush=True)
+        one["continuous"] = replicas_continuous(
+            dev, cfg, model, reqs, caps, spec, chunk_base, sampled_base)
+        print(f"serving over cards {spec} continuous: "
+              + json.dumps(one["continuous"]), flush=True)
+        one["text"] = replicas_text(spec, text)
+        print(f"serving over cards {spec} text: " + json.dumps(one["text"]),
+              flush=True)
+        one["test"] = replicas_test(spec, raw) if raw else "not run"
+        one["s"] = time.perf_counter() - t0
+        print(f"serving over cards {spec} test: " + json.dumps(one["test"]),
+              flush=True)
+        res[spec] = one
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
+def replicas_only(dev, card, elapsed) -> int:
+    """``--only-replicas``: phase 17 with what it needs of the phases before
+    it (the serving model, the exact-sum witness of "case serving", the
+    one-card continuous and sampled runs, phase 11's text serving), without
+    phase 13's files, so (d) is not run. For a machine with several cards:
+    the phase alone, each spec of ``replica_specs``."""
+    import shutil
+    cfg, model = serving_model(dev)
+    serve = serve_case(dev, cfg, model)
+    reqs, caps = make_requests(np.random.RandomState(3), N_REQUESTS)
+    _, cont_base = serve_continuous(dev, cfg, model, reqs, caps)
+    _, sampled_base = serve_continuous_sampled(dev, cfg, model, reqs, caps)
+    elapsed("the one-card references")
+    text = serve_text(dev)
+    elapsed("text serving")
+    try:
+        cards = serving_over_cards(dev, cfg, model, reqs, caps, cont_base,
+                                   sampled_base,
+                                   serve["exact_sums_vs_plain"],
+                                   text["ctx"], None)
+    finally:
+        shutil.rmtree(TEXT_DIR, ignore_errors=True)
+    print("serving over cards: " + json.dumps(
+        {k: cards[k] for k in ("specs", "cards", "phase_s")}), flush=True)
+    elapsed("serving over cards")
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--only-replicas"]):
+        print("usage: python3 chip_smoke.py [--only-replicas]",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
@@ -5332,6 +5830,11 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
+    if argv == ["--only-replicas"]:
+        t0 = time.perf_counter()
+        _build.build_all()
+        print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
+        return replicas_only(dev, card, elapsed)
     t0 = time.perf_counter()
     phase_build = start_stack_phase_build(_build)
     phase_builds = {n: start_phase_build(_build, n)
@@ -5405,7 +5908,8 @@ def main() -> int:
     elapsed("the device loop")
     text = serve_text(dev)
     print("text serving: " + json.dumps({k: v for k, v in text.items()
-                                          if k != "modes"}), flush=True)
+                                          if k not in ("modes", "ctx")}),
+          flush=True)
     elapsed("text serving")
     tmha = train_attention_phase(dev, gen, instances)
     train = train_case(dev)
@@ -5420,11 +5924,19 @@ def main() -> int:
     import shutil
     try:
         dp = data_parallel(dev, card)
+        print("data-parallel training and testing: " + json.dumps(
+            {"world_of_one": raw["world_of_one"], **dp}), flush=True)
+        elapsed("data parallelism")
+        cards = serving_over_cards(dev, cfg, model, reqs, caps, cont_base,
+                                   sampled_base,
+                                   serve["exact_sums_vs_plain"],
+                                   text["ctx"], raw["ctx"])
     finally:
         shutil.rmtree(RAW_DIR, ignore_errors=True)
-    print("data-parallel training and testing: " + json.dumps(
-        {"world_of_one": raw["world_of_one"], **dp}), flush=True)
-    elapsed("data parallelism")
+        shutil.rmtree(TEXT_DIR, ignore_errors=True)
+    print("serving over cards: " + json.dumps(
+        {k: cards[k] for k in ("specs", "cards", "phase_s")}), flush=True)
+    elapsed("serving over cards")
     t0 = time.perf_counter()
     others = other_models(dev)
     print("other models: " + json.dumps({

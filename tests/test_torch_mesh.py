@@ -10,7 +10,12 @@ py``):
   ``parse_mesh_shape`` takes ``D`` and ``D,1`` and refuses a model axis
   (ROADMAP item 7b) and a data axis that is not the world size;
   ``TrainConfig.pool_shard`` and a wrong ``mesh_shape`` are refused by the
-  trainer.
+  trainer;
+* ``local_replicas``, the serving mesh's data axis in one process, takes
+  as many devices as the JAX package's ``local_mesh`` puts on its data
+  axis (d = gcd(every batch size, the devices); the geometry cases of
+  ``tests/test_sharding.py``), over the 8 virtual CPU devices of
+  ``tests/conftest.py`` and as many ``cpu`` replicas.
 """
 
 import numpy as np
@@ -91,3 +96,31 @@ def test_trainer_refuses_pool_shard_and_a_wrong_mesh():
         W.toy_trainer(mesh_shape=(2, 1))
     assert W.toy_trainer(mesh_shape=(1,)).tc == TrainConfig(
         batch_size=W.B, learning_rate=1e-3, warmup_steps=1, mesh_shape=(1,))
+
+
+@pytest.mark.parametrize("sizes", [[8], [6], [12, 4], [5]],
+                         ids=["8", "6", "12_4", "5"])
+def test_local_replicas_take_local_meshs_data_axis(sizes):
+    """As many replicas as the JAX ``local_mesh`` of the sizes' gcd has on
+    its data axis; the first of the named devices; "cuda" refused on a
+    host with no card."""
+    import math
+    from functools import reduce
+
+    import jax
+
+    from case_rg_tpu.kernels import decoder_stack as jds
+    from case_rg_tpu.runtime.mesh import local_mesh
+    from case_rg_tpu_torch.runtime.mesh import local_replicas
+    n = len(jax.local_devices())
+    got = local_replicas(sizes, ",".join(["cpu"] * n))
+    saved = jds._DATA_SHARDS       # local_mesh sets the kernel's hint
+    try:
+        want = local_mesh(reduce(math.gcd, sizes)).shape["data"]
+    finally:
+        jds.set_data_shards(saved)
+    assert len(got) == want and set(got) == {torch.device("cpu")}
+    assert local_replicas(sizes, "cpu") == [torch.device("cpu")]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            local_replicas(sizes, "cuda")

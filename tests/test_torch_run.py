@@ -40,8 +40,6 @@ JAX is not installed.
 import json
 import os
 import shutil
-import signal
-import threading
 
 import numpy as np
 import pytest
@@ -129,198 +127,6 @@ def _fast_jit(fn):
 
 # ---- fit, resume and preemption ----
 
-def test_fit_tracks_the_jax_optimizer(tmp_path):
-    """Two epochs of fit against make_optimizer + EMA on the JAX gradients
-    of the same batches; dev loss after each epoch and best.json."""
-    import jax
-    import jax.numpy as jnp
-
-    from case_rg_tpu.config import ModelConfig as JConfig
-    from case_rg_tpu.config import TrainConfig as JTrainConfig
-    from case_rg_tpu.data.batching import Batcher as JBatcher
-    from case_rg_tpu.models import create_model as jcreate
-    from case_rg_tpu.train.trainer import make_optimizer
-    from case_rg_tpu_torch.bridge import state_dict_from_jax
-    from case_rg_tpu_torch.config import TrainConfig
-    from case_rg_tpu_torch.train.trainer import Trainer
-    from tests.test_torch_train import (TRAIN_ATOL, _k_bias_free, _port,
-                                        _seeded_tree)
-
-    fields = dict(TOY, dropout=0.0)
-    train, dev = _arrays(10, 1), _arrays(5, 2)
-    kw = dict(batch_size=4, learning_rate=1e-3, warmup_steps=1,
-              ema_decay=0.9)
-    tree = _seeded_tree(5)
-    model = jcreate("case", JConfig(**fields))
-
-    def loss_fn(params, batch):
-        losses = model.apply({"params": params}, batch, deterministic=False,
-                             rngs={"dropout": jax.random.PRNGKey(3)},
-                             method=type(model).train_losses)
-        return sum(losses.values()), losses
-
-    vg = _fast_jit(jax.value_and_grad(loss_fn, has_aux=True))
-    tx = make_optimizer(JTrainConfig(**kw), total_steps=20)
-
-    @_fast_jit
-    def apply(grads, opt_state, params, ema):
-        updates, opt_state = tx.update(grads, opt_state, params)
-        params = jax.tree_util.tree_map(lambda p, u: p + u, params, updates)
-        ema = jax.tree_util.tree_map(lambda e, p: 0.1 * p + 0.9 * e, ema,
-                                     params)
-        return opt_state, params, ema
-
-    def jbatch(b):
-        return {k: jnp.asarray(v) for k, v in b.items()
-                if not k.startswith("_")}
-
-    params = jax.tree_util.tree_map(jnp.asarray, tree)
-    opt_state, ema = tx.init(params), params
-    dev_totals = []
-    for epoch in range(2):
-        for b in JBatcher(train, 4, shuffle=True, seed=7).epoch(epoch):
-            _, grads = vg(params, jbatch(b))
-            opt_state, params, ema = apply(grads, opt_state, params, ema)
-        sums, weight = {}, 0.0
-        for b in JBatcher(dev, 4, shuffle=False).epoch(0):
-            (_, losses), _ = vg(params, jbatch(b))
-            w = float(b["sample_weight"].sum())
-            for k, v in losses.items():
-                sums[k] = sums.get(k, 0.0) + float(v) * w
-            weight += w
-        out = {k: v / weight for k, v in sums.items()}
-        out["total"] = sum(out.values())
-        dev_totals.append(out)
-    ref_p = state_dict_from_jax(jax.tree_util.tree_map(np.asarray, params))
-    ref_e = state_dict_from_jax(jax.tree_util.tree_map(np.asarray, ema))
-
-    trainer = Trainer(_port(tree, fields), TrainConfig(**kw), total_steps=20,
-                      device="cpu")
-    state = trainer.fit(trainer.init_state(), train, 2, str(tmp_path),
-                        seed=7, eval_arrays=dev)
-    assert state.step == 6 and state.count == 6
-    for name, p in state.params.items():
-        for got, ref in ((p.detach().numpy(), ref_p[name]),
-                         (state.ema[name].numpy(), ref_e[name])):
-            np.testing.assert_allclose(_k_bias_free(name, got),
-                                       _k_bias_free(name, ref), rtol=0,
-                                       atol=TRAIN_ATOL, err_msg=name)
-            np.testing.assert_allclose(got, ref, rtol=0, atol=3e-3,
-                                       err_msg=name)
-    with open(tmp_path / "metrics.jsonl") as f:
-        rows = [json.loads(x) for x in f]
-    got_dev = [r for r in rows if "dev_total" in r]
-    assert len(got_dev) == 2
-    for got, want in zip(got_dev, dev_totals):
-        for k, v in want.items():
-            assert abs(got[f"dev_{k}"] - v) <= 1e-5 * abs(v), (k, got, want)
-    with open(tmp_path / "model" / "best.json") as f:
-        best = json.load(f)
-    assert best["epoch"] == int(np.argmin([d["total"] for d in dev_totals]))
-    assert sorted(os.listdir(tmp_path / "model")) == \
-        ["0.pt", "1.pt", "best.json", "latest.json"]
-
-
-def test_resume_equals_an_unbroken_run(tmp_path):
-    """Dropout 0.1: fit epoch 0, then resume_or_init in a new trainer and
-    fit epoch 1: the state and the epoch-1 checkpoint equal an unbroken
-    2-epoch fit's bit for bit."""
-    from case_rg_tpu_torch.train.checkpoint import load_checkpoint
-    train, dev = _arrays(10, 3), _arrays(5, 4)
-    whole, parts = str(tmp_path / "whole"), str(tmp_path / "parts")
-    a = _toy_trainer()
-    sa = a.fit(a.init_state(), train, 2, whole, seed=11, eval_arrays=dev)
-    b = _toy_trainer()
-    b.fit(b.init_state(), train, 1, parts, seed=11, eval_arrays=dev)
-    c = _toy_trainer(seed=99)                 # other initial weights
-    sc, start = c.resume_or_init(parts)
-    assert start == 1 and sc.step == 3
-    sc = c.fit(sc, train, 2, parts, seed=11, start_epoch=start,
-               eval_arrays=dev)
-    _same_state(sc, sa)
-    ka, kc = load_checkpoint(whole, 1), load_checkpoint(parts, 1)
-    for name in ("params", "ema"):
-        for k in ka[name]:
-            assert torch.equal(ka[name][k], kc[name][k]), (name, k)
-    for name in ("mu", "nu"):
-        for k in ka["opt_state"][name]:
-            assert torch.equal(ka["opt_state"][name][k],
-                               kc["opt_state"][name][k]), (name, k)
-    with open(os.path.join(whole, "model", "best.json")) as f:
-        wb = json.load(f)
-    with open(os.path.join(parts, "model", "best.json")) as f:
-        assert json.load(f) == wb
-    c2 = _toy_trainer(resume=False)
-    assert c2.resume_or_init(parts)[1] == 0
-
-
-def test_resume_with_accumulation(tmp_path):
-    """k = 2 over 3 batches an epoch: epoch 0 ends mid-accumulation; the
-    running mean rides in the checkpoint and the resumed run equals the
-    unbroken one bit for bit."""
-    train = _arrays(12, 5)
-    a = _toy_trainer(accumulation_steps=2)
-    sa = a.fit(a.init_state(), train, 2, str(tmp_path / "a"), seed=3)
-    b = _toy_trainer(accumulation_steps=2)
-    b.fit(b.init_state(), train, 1, str(tmp_path / "b"), seed=3)
-    c = _toy_trainer(accumulation_steps=2)
-    sc, start = c.resume_or_init(str(tmp_path / "b"))
-    assert (start, sc.mini_step, sc.step) == (1, 1, 1)
-    assert any(bool(v.any()) for v in sc.acc.values())
-    with pytest.raises(ValueError, match="accumulation"):
-        _toy_trainer().resume_or_init(str(tmp_path / "b"))
-    sc = c.fit(sc, train, 2, str(tmp_path / "b"), seed=3, start_epoch=1)
-    _same_state(sc, sa)
-    for k in sa.acc:
-        assert torch.equal(sa.acc[k], sc.acc[k]), k
-
-
-def test_preemption_and_mid_epoch_checkpoints(tmp_path, monkeypatch):
-    """A guard set after batch 2 of epoch 1: ``1.preempt.pt`` holds the
-    state after those 2 steps, ``latest.json`` stays at epoch 0, and
-    ``fit`` returns. ``checkpoint_every_steps=1`` wrote ``0.mid.pt``. The
-    signal handler that ``fit`` installs sets the guard; the previous
-    handlers are back afterwards."""
-    from case_rg_tpu_torch.train import trainer as trainer_mod
-    from case_rg_tpu_torch.train.checkpoint import (latest_epoch,
-                                                    load_checkpoint)
-    assert threading.current_thread() is threading.main_thread()
-    out = str(tmp_path)
-    train = _arrays(16, 6)
-    t = _toy_trainer(checkpoint_every_steps=1)
-    step = t.train_step
-    calls = []
-
-    def stepping(state, batch, gen):
-        losses = step(state, batch, gen)
-        calls.append(state.step)
-        if len(calls) == 6:            # epoch 1, after its batch 1
-            signal.getsignal(signal.SIGTERM)(signal.SIGTERM, None)
-        return losses
-
-    monkeypatch.setattr(t, "train_step", stepping)
-    before = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
-    state = t.fit(t.init_state(), train, 3, out, seed=1)
-    assert {s: signal.getsignal(s) for s in before} == before
-    assert calls == [1, 2, 3, 4, 5, 6]
-    assert latest_epoch(out) == 0
-    names = sorted(os.listdir(os.path.join(out, "model")))
-    assert names == ["0.mid.pt", "0.pt", "1.mid.pt", "1.preempt.pt",
-                     "latest.json"], names
-    ck = load_checkpoint(out, "1.preempt")
-    assert ck["step"] == 6 == state.step
-    for k, v in state.params.items():
-        assert torch.equal(ck["params"][k], v.detach()), k
-    assert load_checkpoint(out, "0.mid")["step"] == 4   # batch 3 of 0-3
-
-    guard = trainer_mod.PreemptionGuard()
-    guard.requested = True
-    with pytest.raises(KeyboardInterrupt):
-        t.train_epoch(state, trainer_mod.Batcher(train, 4), 2,
-                      torch.Generator(), output_path=out, guard=guard)
-    assert load_checkpoint(out, "2.preempt")["step"] == 6
-
-
 # ---- a JAX checkpoint's optimiser state ----
 
 def _jax_tree(seed, like):
@@ -348,76 +154,6 @@ def _small_tree(seed):
             "norm": {"scale": rng.randn(3).astype(np.float32),
                      "bias": rng.randn(3).astype(np.float32)},
             "embed": {"embedding": rng.randn(5, 4).astype(np.float32)}}
-
-
-@pytest.mark.parametrize("accum", [1, 2], ids=["adam", "multisteps"])
-def test_jax_optimizer_state_carries_over(tmp_path, accum):
-    """make_optimizer after 2 updates (MultiSteps: 1 update and a
-    mini-step), saved by the JAX package; the port restores it field by
-    field and one more update (MultiSteps: the one that applies) equals
-    ``tx.update`` within 1e-6; so does the EMA."""
-    import jax
-
-    from case_rg_tpu.config import TrainConfig as JTrainConfig
-    from case_rg_tpu.train.checkpoint import save_checkpoint
-    from case_rg_tpu.train.trainer import TrainState, make_optimizer
-    from case_rg_tpu_torch.bridge import load_jax_params, state_dict_from_jax
-    from case_rg_tpu_torch.config import TrainConfig
-    from case_rg_tpu_torch.train.checkpoint import load_checkpoint
-    from case_rg_tpu_torch.train.trainer import Trainer
-
-    kw = dict(batch_size=4, learning_rate=1e-3, warmup_steps=1,
-              accumulation_steps=accum)
-    tx = make_optimizer(JTrainConfig(**kw), total_steps=20)
-    params = _small_tree(6)
-    opt = tx.init(params)
-    calls = 2 if accum == 1 else 3     # 2 updates; 1 update + a mini-step
-    for i in range(calls):
-        _, opt = tx.update(_jax_tree(10 + i, params), opt, params)
-    ema = _jax_tree(30, params)
-    save_checkpoint(str(tmp_path), 0, jax.device_get(TrainState(
-        params=params, opt_state=opt, ema=ema, step=np.int32(2))))
-
-    ck = load_checkpoint(str(tmp_path), 0)
-    got = ck["opt_state"]
-    inner = opt.inner_opt_state if accum > 1 else opt
-    adam = inner[1][0]
-    assert got["count"] == int(adam.count) == (2 if accum == 1 else 1)
-    assert got["mini_step"] == (1 if accum > 1 else 0)
-    for name in ("mu", "nu"):
-        want = state_dict_from_jax(jax.tree_util.tree_map(
-            np.asarray, getattr(adam, name)))
-        for k, v in want.items():
-            assert np.array_equal(got[name][k].numpy(), v), (name, k)
-    if accum > 1:
-        want = state_dict_from_jax(jax.tree_util.tree_map(
-            np.asarray, opt.acc_grads))
-        for k, v in want.items():
-            assert np.array_equal(got["acc"][k].numpy(), v), k
-    else:
-        assert "acc" not in got
-
-    grads = _jax_tree(40, params)
-    updates, _ = tx.update(grads, opt, params)
-    new = jax.tree_util.tree_map(lambda p, u: np.asarray(p + u), params,
-                                 updates)
-    want = state_dict_from_jax(new)
-    want_ema = state_dict_from_jax(jax.tree_util.tree_map(
-        lambda e, p: 0.005 * p + 0.995 * e, ema, new))
-    model = _Small()
-    load_jax_params(model, _small_tree(99))
-    trainer = Trainer(model, TrainConfig(**kw), total_steps=20, device="cpu")
-    state = trainer.restore(trainer.init_state(), ck)
-    assert state.step == 2
-    trainer.apply_gradients(state, {k: torch.from_numpy(v) for k, v in
-                                    state_dict_from_jax(grads).items()})
-    assert (state.mini_step, state.count, state.step) == \
-        (0, 3 if accum == 1 else 2, 3)
-    for k, v in want.items():
-        np.testing.assert_allclose(state.params[k].detach().numpy(), v,
-                                   rtol=0, atol=1e-6, err_msg=k)
-        np.testing.assert_allclose(state.ema[k].numpy(), want_ema[k],
-                                   rtol=0, atol=1e-6, err_msg=k)
 
 
 # ---- cli/run --mode test and avg, Pipeline, against the JAX CLI ----
@@ -697,21 +433,6 @@ def test_pipeline_equals_cli_serve(jax_run):
 
 # ---- the port end to end, refusals, no card ----
 
-def test_one_hot_labels_out_of_range_match_jax():
-    """A gold passage past the scored pool (data prepared with the default
-    10-passage pool, trained with --num_passage 4, as the toy corpus is)
-    gives a row of zeros, as ``jax.nn.one_hot`` does."""
-    import jax.numpy as jnp
-
-    from case_rg_tpu.models.base import one_hot_labels as jax_one_hot
-    from case_rg_tpu_torch.models.base import one_hot_labels
-    idx = np.array([-1, 0, 3, 4, 9], np.int32)
-    np.testing.assert_array_equal(
-        one_hot_labels(torch.from_numpy(idx), 4).numpy(),
-        np.asarray(jax_one_hot(jnp.asarray(idx), 4)))
-
-
-
 def test_port_train_resume_test_evaluate(jax_run, tmp_path):
     """cli/run trains the toy corpus 1 epoch, resumes for a second (with
     --checkpoint_every_steps and --profile_dir), tests every epoch and
@@ -747,53 +468,6 @@ def test_port_train_resume_test_evaluate(jax_run, tmp_path):
                    if k != "METEOR_variant"), metrics
 
 
-@pytest.mark.parametrize("name, mode, losses", [
-    ("masque", "train", {"select", "gen"}), ("s2sa", "train", {"mle"}),
-    ("tmemnet", "ps_train", {"select"}),
-    ("glks", "train", {"mle", "mce", "ds"})],
-    ids=["masque", "s2sa", "ps_train", "glks"])
-def test_cli_runs_the_other_models(tmp_path, name, mode, losses):
-    """cli/run trains each of the other models one epoch on the toy corpus
-    (prepared for it by the port's cli/prepare) with its losses (GLKS's
-    ds_mle_mce_train, ps_train the ranker alone: the decoder keeps its
-    seeded weights), then --mode test writes its answers (and, for the
-    models with a rank head, rankings) for both splits."""
-    from case_rg_tpu_torch.cli.prepare import main as prepare_main
-    from case_rg_tpu_torch.models import create_model
-    from case_rg_tpu_torch.train.checkpoint import load_checkpoint
-
-    root = str(tmp_path)
-    make_dataset(root, "toy", n_queries=12, n_passages=20)
-    prepare_main(["--data_path", root, "--dataset", "toy", "--models", name,
-                  "--answer_len", "10"] + DATA)
-    out = os.path.join(root, "out")
-    common = ["--model", name, "--data_path", root, "--dataset", "toy",
-              "--output_path", out, "--batch_size", "4", "--device", "cpu",
-              "--epoch", "1"] + SHAPES
-    run_main(common + ["--mode", mode, "--learning_rate", "1e-3",
-                       "--warmup_steps", "1"])
-    with open(os.path.join(out, "metrics.jsonl")) as f:
-        rows = [json.loads(x) for x in f]
-    assert {k[4:] for r in rows for k in r if k.startswith("dev_")} == \
-        losses | {"total"}
-    ck = load_checkpoint(out, 0)
-    if mode == "ps_train":
-        init = dict(create_model(name, ck_cfg(ck, name), device="cpu",
-                                 seed=123456).named_parameters())
-        moved = {k for k, v in ck["params"].items()
-                 if not torch.equal(v, init[k].detach())}
-        assert moved and all(not k.startswith(("decoder.", "dec_", "gen."))
-                             for k in moved), sorted(moved)
-    run_main(common + ["--mode", "test"])
-    result = os.path.join(out, "result")
-    for split in ("dev", "test"):
-        with open(os.path.join(result, f"toy_{split}_0.0.answer")) as f:
-            assert len(f.read().splitlines()) > 0
-        assert os.path.exists(os.path.join(
-            result, f"toy_{split}_0.0.run")) == (name != "s2sa" and
-                                                 name != "glks")
-
-
 def ck_cfg(ck, name):
     """The toy model config of a checkpoint's vocabulary size."""
     from case_rg_tpu_torch.config import ModelConfig
@@ -803,168 +477,4 @@ def ck_cfg(ck, name):
                        max_dec_len=10)
 
 
-@pytest.mark.parametrize("extra, message", [
-    (["--model", "glks", "--mode", "ps_train"], "only defined for masque"),
-    (["--multihost"], "start every rank with torchrun"),
-    (["--mesh_shape", "2,1"], "not the world size 1"),
-    (["--pool_shard"], "item 7b"), (["--mesh_shape", "1,2"], "item 7b"),
-    (["--ckpt_backend", "orbax"], "item 2"), (["--remat", "dots"], None),
-    (["--seeded_dropout"], None), (["--bf16_scores", "--bf16_train"], None),
-    (["--mesh_shape", "1"], None)],
-    ids=["ps_train_glks", "multihost", "mesh_shape", "pool_shard",
-         "model_axis", "orbax", "remat", "seeded_dropout", "bf16_scores",
-         "mesh_shape_one"])
-def test_refused_flags(jax_run, tmp_path, extra, message):
-    """The flags still refused exit naming their ROADMAP item: the pool
-    axis and a model axis (item 7b), orbax (item 2). ``--multihost``
-    outside torchrun's environment exits naming torchrun (never a quiet
-    world of one), and a ``--mesh_shape`` data axis must be the world size
-    (``tests/test_torch_distributed.py`` runs the group itself). The
-    training options (``--remat``, ``--seeded_dropout``, ``--bf16_scores``)
-    and ``--mesh_shape 1`` (a world of one) train an epoch of the toy
-    corpus: the checkpoint is written, its losses are finite and the
-    switch is set."""
-    from case_rg_tpu_torch.ops import attention, dropout
-    from case_rg_tpu_torch.train.checkpoint import load_checkpoint
-    argv = ["--model", "case", "--mode", "train", "--output_path",
-            str(tmp_path)]
-    for flag in ("--model", "--mode"):
-        if flag in extra:
-            i = argv.index(flag)
-            del argv[i:i + 2]
-    if message is not None:
-        with pytest.raises(SystemExit, match=message):
-            run_main(argv + extra)
-        return
-    run_main(argv + extra + ["--data_path", jax_run["root"], "--dataset",
-                             "toy", "--device", "cpu", "--epoch", "1",
-                             "--batch_size", "4", "--warmup_steps", "1"]
-             + SHAPES)
-    ck = load_checkpoint(str(tmp_path), 0)
-    assert ck["step"] > 0
-    with open(os.path.join(tmp_path, "metrics.jsonl")) as f:
-        rows = [json.loads(x) for x in f]
-    assert rows and all(np.isfinite(v) for r in rows for k, v in r.items()
-                        if k.startswith("dev_"))
-    assert dropout.seeded_dropout_enabled() == ("--seeded_dropout" in extra)
-    assert attention._BF16_SCORES == ("--bf16_scores" in extra)
-
-
-def test_entry_points_need_a_card_unless_asked(jax_run, monkeypatch):
-    from case_rg_tpu_torch.pipeline import Pipeline
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    out = _port_out(jax_run, "nocard")
-    for mode in ("train", "test"):
-        with pytest.raises(RuntimeError, match="device='cpu'"):
-            run_main([x if x != jax_run["out"] else out
-                      for x in jax_run["common"]] + ["--mode", mode])
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        Pipeline.from_checkpoint("case", output_path=jax_run["out"],
-                                 prepared_dir=jax_run["prep"])
-
-
 # ---- on the card ----
-
-@pytest.mark.cuda
-def test_train_and_test_on_the_card(cuda, tmp_path):
-    """One bf16 epoch through cli/run on the card (the training-attention
-    and additive_scores kernels launched), then --mode test --bf16_eval:
-    its files equal ``make_predict_fn`` on the prepared batches written by
-    ``save_results``, token for token and ranking for ranking."""
-    import argparse
-
-    from case_rg_tpu_torch.cli.prepare import main as prepare_main
-    from case_rg_tpu_torch.cli.serve import load_model
-    from case_rg_tpu_torch.data.prepare import load_prepared
-    from case_rg_tpu_torch.data.vocab import Vocabulary
-    from case_rg_tpu_torch.kernels import additive_attention, train_attention
-    from case_rg_tpu_torch.runtime.inference import make_predict_fn
-    from case_rg_tpu_torch.runtime.io import save_results
-    from case_rg_tpu_torch.train.trainer import predict
-
-    root = str(tmp_path)
-    make_dataset(root, "toy", n_queries=24, n_passages=40)
-    prepare_main(["--data_path", root, "--dataset", "toy", "--models",
-                  "case", "--query_len", "24", "--passage_len", "100",
-                  "--num_passage", "6", "--answer_len", "12"])
-    out = os.path.join(root, "out")
-    common = ["--model", "case", "--data_path", root, "--dataset", "toy",
-              "--output_path", out, "--batch_size", "8",
-              "--max_target_length", "12", "--epoch", "1"]
-    fwd, bwd = train_attention.LAUNCHES_FWD["rng"], \
-        additive_attention.LAUNCHES_BWD
-    run_main(common + ["--mode", "train", "--bf16_train",
-                       "--learning_rate", "1e-3", "--warmup_steps", "1"])
-    assert train_attention.LAUNCHES_FWD["rng"] > fwd
-    assert additive_attention.LAUNCHES_BWD > bwd
-    run_main(common + ["--mode", "test", "--bf16_eval", "--fast_argmax",
-                       "pallas"])
-    prep = os.path.join(root, "toy", "prepared")
-    args = argparse.Namespace(
-        model="case", output_path=out, device="cuda", bf16=True, ema=False,
-        embedding_size=256, hidden_size=256, num_heads=8,
-        max_target_length=12, beam_width=1, min_window_size=4,
-        num_windows=1)
-    vocab = Vocabulary.load(os.path.join(prep, "vocab.txt"))
-    cfg, model = load_model(args, vocab, 0)
-    fn = make_predict_fn(model, cfg, 12, fast_argmax="pallas", device=cuda)
-    ref = os.path.join(root, "ref")
-    for split in ("dev", "test"):
-        arrays, meta, _, _ = load_prepared(prep, split, "case")
-        save_results(predict(arrays, fn, 8), meta, vocab, ref, 0, 0,
-                     f"toy_{split}")
-    for name in os.listdir(os.path.join(ref, "result")):
-        with open(os.path.join(ref, "result", name)) as f:
-            want = f.read()
-        with open(os.path.join(out, "result", name)) as f:
-            assert f.read() == want, name
-
-
-@pytest.mark.cuda
-def test_remat_step_under_no_host_sync_on_the_card(cuda):
-    """A bf16 CaSE train step on the card with the in-kernel-RNG training
-    attention, under ``--remat dots`` and under ``device.no_host_sync``:
-    its loss equals the step without remat bit for bit, its gradients
-    agree at cosine >= 0.9999 (the embedding gradient's accumulating
-    index_put adds in no fixed order), and the recompute runs each
-    training-attention forward again."""
-    from case_rg_tpu_torch.config import ModelConfig, TrainConfig
-    from case_rg_tpu_torch.device import batch_to_device, no_host_sync
-    from case_rg_tpu_torch.kernels import train_attention
-    from case_rg_tpu_torch.models import create_model
-    from case_rg_tpu_torch.train.trainer import Trainer
-    cfg = ModelConfig(name="case", vocab_size=1000, embedding_size=256,
-                      hidden_size=256, num_heads=8, enc_layers=1,
-                      dec_layers=2, max_dec_len=12, max_target_length=12,
-                      dropout=0.1)
-    rng = np.random.RandomState(0)
-    b, p, lp = 4, 6, 100
-    batch = {"query": rng.randint(4, 1000, (b, 1, 24)),
-             "passage": rng.randint(4, 1000, (b, p, lp)),
-             "response": rng.randint(4, 1000, (b, 12)),
-             "passage_label": rng.randint(0, p, b),
-             "token_label": (rng.rand(b, p, lp) > .9).astype(np.float32),
-             "token_weight": np.ones((b, p, lp), np.float32)}
-    batch["response"][:, 9:] = 0
-    batch = batch_to_device({k: v.astype(np.int32) if v.dtype == np.int64
-                             else v for k, v in batch.items()}, cuda)
-    runs = []
-    for remat in ("", "dots"):
-        model = create_model("case", cfg, device=cuda, seed=0)
-        trainer = Trainer(model, TrainConfig(compute_dtype="bfloat16",
-                                             remat=remat),
-                          total_steps=10, device=cuda)
-        st = trainer.init_state()
-        gen = torch.Generator(device=cuda).manual_seed(3)
-        trainer.loss_and_grads(st, batch, gen)     # first-call work
-        gen = torch.Generator(device=cuda).manual_seed(3)
-        before = train_attention.LAUNCHES_FWD["rng"]
-        with no_host_sync():
-            losses, grads = trainer.loss_and_grads(st, batch, gen)
-        torch.cuda.synchronize()
-        runs.append((losses["total"].item(),
-                     torch.cat([g.float().flatten() for g in grads.values()]),
-                     train_attention.LAUNCHES_FWD["rng"] - before))
-    (l0, g0, f0), (l1, g1, f1) = runs
-    assert l1 == l0 and f1 == 2 * f0 > 0
-    assert torch.nn.functional.cosine_similarity(g0, g1, dim=0) >= 0.9999

@@ -236,22 +236,6 @@ def test_serve_equals_the_jax_package(served, extra):
     _same_jsonl(_port(served, "batched", *extra), served)
 
 
-@pytest.mark.parametrize("extra", [
-    ["--continuous"],
-    ["--continuous", "--refill", "1", "--chunk_steps", "3"],
-    ["--continuous", "--lookahead", "--async_harvest", "--refill", "2",
-     "--refill_min", "2"],
-    ["--continuous", "--device_loop", "2", "--chunk_steps", "2"],
-    ["--continuous", "--device_loop", "3", "--chunk_steps", "2",
-     "--lookahead", "--stage_rows", "3", "--warmup"],
-    ["--batch_buckets", "2,4"],
-    ["--pipeline_depth", "1", "--warmup"],
-], ids=["chunk-loop", "refill-1", "lookahead-async", "device-loop",
-        "device-loop-lookahead", "batch-buckets", "depth-1"])
-def test_port_modes_equal_the_batched_answers(served, extra):
-    _same_jsonl(_port(served, "mode", *extra), served)
-
-
 def test_rank_only_ranks_as_the_full_run(served):
     got = [json.loads(x) for x in _port(served, "rank_only",
                                         "--rank_only").splitlines()]
@@ -365,23 +349,6 @@ def test_http(served, extra):
                         [want[1]], served["scores"])
 
 
-@pytest.mark.parametrize("extra, message", [
-    (["--from_export", "artifact", "--continuous"],
-     "--continuous does not apply"),
-    (["--from_export", "artifact", "--bf16"], "--bf16 does not apply"),
-    (["--pool_shard", "2"], "item 7b"),
-    (["--from_export", "artifact", "--bf16_scores"],
-     "--bf16_scores does not apply"),
-], ids=["from_export-continuous", "from_export-bf16", "pool_shard",
-        "bf16_scores"])
-def test_refused_flags(served, extra, message):
-    """Each refused flag exits with its message. ``--bf16_scores`` is
-    refused only with ``--from_export`` (the archive fixes its program);
-    on its own it is served (``test_bf16_scores_is_served``)."""
-    with pytest.raises(SystemExit, match=message):
-        _port(served, "refused", *extra)
-
-
 def test_bf16_scores_is_served(served):
     """``--bf16_scores`` turns the switch on; on the f32 checkpoint every
     score stays f32 (f32 inputs always get f32 scores), so the JSONL is
@@ -403,251 +370,4 @@ SIDECAR_KEYS = {"model", "epoch", "platforms", "batch_size", "dtype",
                 "inputs"}
 
 
-@pytest.fixture(scope="module")
-def exported(served):
-    """The port's cli/export_model on the CPU from the JAX checkpoint, at
-    the JAX CLI's batch size; the requests file and the serving arguments
-    of the archive."""
-    from case_rg_tpu_torch.cli.export_model import main as export_main
-    art = os.path.join(served["root"], "case_b4.pt2")
-    common = served["common"]
-    report = export_main(["--model", "case", "--prepared_dir", served["prep"],
-                          "--output_path", served["out"], "--out", art,
-                          "--batch_size", "4", "--device", "cpu"] + SHAPES)
-    req = common[common.index("--input") + 1]
-    return {"art": art, "report": report,
-            "common": ["--prepared_dir", served["prep"], "--from_export",
-                       art, "--input", req]}
-
-
-def test_export_sidecar(served, exported):
-    """The sidecar has the JAX CLI's keys, the CPU as its platform, and
-    ``chunk_to_batch``'s input shapes and dtypes."""
-    from case_rg_tpu_torch.config import DataConfig
-    from case_rg_tpu_torch.data.vocab import Vocabulary
-    from case_rg_tpu_torch.serving.featurize import chunk_to_batch
-    with open(exported["art"] + ".json") as f:
-        side = json.load(f)
-    assert set(side) == SIDECAR_KEYS and side == exported["report"]["sidecar"]
-    assert side["platforms"] == ["cpu"] and side["batch_size"] == 4
-    assert side["data"] == {"query_len": 24, "passage_len": 24,
-                            "num_passage": 4}
-    vocab = Vocabulary.load(os.path.join(served["prep"], "vocab.txt"))
-    batch = chunk_to_batch(served["reqs"][:1], "case", vocab, DataConfig(
-        query_len=24, passage_len=24, num_passage=4, answer_len=10), 4)
-    assert side["inputs"] == {k: {"shape": list(v.shape),
-                                  "dtype": str(v.dtype)}
-                              for k, v in batch.items()}
-
-
-def test_from_export_equals_the_jax_package(served, exported):
-    """cli/serve --from_export on the CPU writes the JAX CLI's JSONL."""
-    path = os.path.join(served["root"], "from_export.jsonl")
-    port_main(exported["common"] + ["--output", path, "--device", "cpu"])
-    with open(path) as f:
-        _same_jsonl(f.read(), served)
-
-
-def test_from_export_early_exit_equals_the_jax_package(served):
-    """The JAX checkpoint exported with ``--early_exit`` (the decode a
-    ``while_loop``) and served with cli/serve --from_export on the CPU
-    writes the JAX CLI's JSONL; its sidecar has the JAX CLI's keys."""
-    from case_rg_tpu_torch.cli.export_model import main as export_main
-    art = os.path.join(served["root"], "case_b4_early.pt2")
-    report = export_main(["--model", "case", "--prepared_dir",
-                          served["prep"], "--output_path", served["out"],
-                          "--out", art, "--batch_size", "4", "--early_exit",
-                          "--device", "cpu"] + SHAPES)
-    assert set(report["sidecar"]) == SIDECAR_KEYS
-    common = served["common"]
-    path = os.path.join(served["root"], "from_export_early.jsonl")
-    port_main(["--prepared_dir", served["prep"], "--from_export", art,
-               "--input", common[common.index("--input") + 1], "--output",
-               path, "--device", "cpu"])
-    with open(path) as f:
-        _same_jsonl(f.read(), served)
-
-
-def test_from_export_over_http(served, exported):
-    """The --listen front end serves the archive as the batched one does."""
-    reqs = served["reqs"][:-1]
-    got, varz, _ = _http(served, [], [reqs[i::3] for i in range(3)],
-                         common=exported["common"])
-    want = [json.loads(x) for x in served["want"].splitlines()][:-1]
-    _same_responses([got[w["id"]] for w in want], want, served["scores"])
-    assert varz["errors"] == 0 and varz["requests_served"] == len(reqs)
-
-
-@pytest.mark.parametrize("case", ["platform", "not_an_archive",
-                                  "no_sidecar"])
-def test_from_export_refusals(served, exported, tmp_path, case):
-    """An archive traced for the card served with --device cpu, a file
-    that is not a torch.export archive (a JAX .shlo with a ["cpu"]
-    sidecar), and an archive without its sidecar are refused."""
-    with open(exported["art"] + ".json") as f:
-        side = json.load(f)
-    art = str(tmp_path / "case.pt2")
-    if case == "platform":
-        os.symlink(exported["art"], art)
-        side["platforms"] = ["cuda"]
-        message = r"exported for platform\(s\) \['cuda'\]"
-    elif case == "not_an_archive":
-        art = str(tmp_path / "case.shlo")
-        with open(art, "wb") as f:
-            f.write(b"ML\xefR\x0dStableHLO_v1.0.0\x00")
-        message = "case.shlo is not a torch.export archive"
-    else:
-        os.symlink(exported["art"], art)
-        side = None
-        message = "cannot read sidecar"
-    if side is not None:
-        with open(art + ".json", "w") as f:
-            json.dump(side, f)
-    argv = exported["common"][:]
-    argv[argv.index("--from_export") + 1] = art
-    with pytest.raises(SystemExit, match=message):
-        port_main(argv + ["--output", str(tmp_path / "o.jsonl"),
-                          "--device", "cpu"])
-
-
-@pytest.mark.parametrize("name", ["masque", "glks", "tmemnet"])
-def test_serves_the_other_models(served, tmp_path, name):
-    """The port's CLI serves the other models from a port checkpoint (random
-    weights with noisy biases): its JSONL equals ``make_predict_fn`` on
-    ``chunk_to_batch`` of the same requests, detokenized as the CLI does,
-    and rankings (masque, tmemnet) order each pool by the rank scores."""
-    from case_rg_tpu_torch.config import DataConfig, ModelConfig
-    from case_rg_tpu_torch.data.vocab import Vocabulary
-    from case_rg_tpu_torch.models import (build_model_cfg, create_model,
-                                          perturb_affine)
-    from case_rg_tpu_torch.runtime.inference import make_predict_fn
-    from case_rg_tpu_torch.runtime.io import ids_to_sentence, remove_duplicate
-    from case_rg_tpu_torch.serving.featurize import chunk_to_batch
-    from case_rg_tpu_torch.train.checkpoint import save_checkpoint
-
-    vocab = Vocabulary.load(os.path.join(served["prep"], "vocab.txt"))
-    cfg = build_model_cfg(ModelConfig(embedding_size=16, hidden_size=16,
-                                      num_heads=2, max_target_length=10,
-                                      max_dec_len=10), name, vocab)
-    model = create_model(name, cfg, device="cpu", seed=3)
-    perturb_affine(model, torch.Generator().manual_seed(4))
-    params = dict(model.named_parameters())
-    out = str(tmp_path / "out")
-    save_checkpoint(out, 0, {"params": params, "ema": params, "step": 0})
-    common = [x if x != served["out"] else out for x in served["common"]]
-    common[common.index("--model") + 1] = name
-    path = str(tmp_path / "got.jsonl")
-    port_main(common + ["--output", path, "--device", "cpu"])
-    with open(path) as f:
-        got = [json.loads(x) for x in f]
-
-    dcfg = DataConfig(query_len=24, passage_len=24, num_passage=4,
-                      answer_len=10)
-    predict = make_predict_fn(model, cfg, 10, device="cpu")
-    detok = vocab.detokenizer()
-    reqs = served["reqs"]
-    assert len(got) == len(reqs)
-    for i in range(0, len(reqs), 4):
-        chunk = reqs[i:i + 4]
-        pred = predict(chunk_to_batch(chunk, name, vocab, dcfg, 4))
-        caps = [min(r.get("max_tokens", 10), 10) for r in chunk]
-        sents = [ids_to_sentence(row[:c], vocab) for row, c in
-                 zip(pred["answer"].numpy(), caps)]
-        remove_duplicate(sents)
-        for j, (resp, req) in enumerate(zip(got[i:i + 4], chunk)):
-            assert resp["id"] == req.get("id", i + j)
-            assert resp["answer"] == detok(sents[j])
-            assert ("ranking" in resp) == (name != "glks")
-            if name != "glks":
-                n_real = min(len(req["passages"]), 4)
-                scores = pred["rank"][j].numpy()[:max(n_real, 1)]
-                assert resp["ranking"] == [int(k) for k in np.argsort(
-                    -scores, kind="stable")[:n_real]]
-    assert any(r["answer"] for r in got)
-
-
-def test_serve_needs_a_card_unless_asked(served, monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        port_main(served["common"] + ["--output", os.path.join(
-            served["root"], "nocard.jsonl")])
-
-
 # ---- on the card ----
-
-@pytest.mark.cuda
-def test_cli_on_the_card_equals_the_serving_loops(cuda, tmp_path):
-    """bf16 on the card: the CLI's batched answers equal ``make_predict_fn``
-    on ``chunk_to_batch`` of the same requests, and its device-loop answers
-    ``run_continuous_device`` on the same batches, token for token (as the
-    CLI detokenizes them)."""
-    from case_rg_tpu_torch.config import DataConfig, ModelConfig
-    from case_rg_tpu_torch.data.vocab import Vocabulary
-    from case_rg_tpu_torch.models import (build_model_cfg, create_model,
-                                          perturb_affine)
-    from case_rg_tpu_torch.runtime.continuous import (make_device_loop_fns,
-                                                      run_continuous_device)
-    from case_rg_tpu_torch.runtime.inference import make_predict_fn
-    from case_rg_tpu_torch.runtime.io import ids_to_sentence, remove_duplicate
-    from case_rg_tpu_torch.serving.featurize import chunk_to_batch
-    from case_rg_tpu_torch.train.checkpoint import save_checkpoint
-
-    prep, out = tmp_path / "prepared", str(tmp_path / "out")
-    prep.mkdir()
-    vocab = Vocabulary.build_from_texts([WORDS + [w + "s" for w in WORDS]])
-    vocab.save(str(prep / "vocab.txt"))
-    vocab = Vocabulary.load(str(prep / "vocab.txt"))
-    n_pass, lq, lp, t = 6, 24, 100, 12
-    cfg = build_model_cfg(ModelConfig(embedding_size=256, hidden_size=256,
-                                      num_heads=8, max_target_length=t,
-                                      max_dec_len=t), "case", vocab)
-    f32 = create_model("case", cfg, device=cuda)
-    perturb_affine(f32, torch.Generator(device=cuda).manual_seed(1))
-    params = dict(f32.named_parameters())
-    save_checkpoint(out, 0, {"params": params, "ema": params, "step": 0})
-    model = f32.to(torch.bfloat16)
-    reqs = _requests(24, seed=3)
-    for r in reqs:
-        r["passages"] = r["passages"] * 3
-    req_path = str(tmp_path / "reqs.jsonl")
-    _write(req_path, reqs)
-    dcfg = DataConfig(query_len=lq, passage_len=lp, num_passage=n_pass,
-                      answer_len=t)
-    common = ["--model", "case", "--prepared_dir", str(prep),
-              "--output_path", out, "--input", req_path, "--batch_size",
-              "8", "--bf16", "--fast_argmax", "pallas",
-              "--max_target_length", str(t), "--query_len", str(lq),
-              "--passage_len", str(lp), "--num_passage", str(n_pass)]
-    detok = vocab.detokenizer()
-
-    def answers(ids_rows, chunk):
-        caps = [min(r.get("max_tokens", t), t) for r in chunk]
-        sents = [ids_to_sentence(row[:max(c, 1)], vocab)
-                 for row, c in zip(ids_rows, caps)]
-        remove_duplicate(sents)
-        return [detok(s) for s in sents]
-
-    def cli(*extra):
-        path = str(tmp_path / "got.jsonl")
-        port_main(common + ["--output", path] + list(extra))
-        with open(path) as f:
-            return [json.loads(x)["answer"] for x in f]
-
-    predict = make_predict_fn(model, cfg, t, early_exit=True,
-                              fast_argmax="pallas", device=cuda)
-    want = []
-    for i in range(0, len(reqs), 8):
-        chunk = reqs[i:i + 8]
-        ids = predict(chunk_to_batch(chunk, "case", vocab, dcfg, 8))
-        want += answers(ids["answer"].cpu().numpy(), chunk)
-    assert cli() == want
-
-    fns = make_device_loop_fns(model, t, 2, 2, 8, refill_bound=2,
-                               fast_argmax="pallas", device=cuda)
-    got = {}
-    run_continuous_device(
-        iter(reqs), lambda c, k: chunk_to_batch(c, "case", vocab, dcfg, k),
-        fns, 8, 2, lambda r, ids, rk: got.__setitem__(id(r), ids), t)
-    direct = [answers([got[id(r)]], [r])[0] for r in reqs]
-    assert cli("--continuous", "--device_loop", "2", "--chunk_steps", "2",
-               "--refill", "2", "--stage_rows", "8") == direct

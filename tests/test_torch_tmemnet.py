@@ -45,11 +45,5 @@ def test_chunked_decode_lockstep_matches_jax(models):
     base.test_chunked_decode_lockstep_matches_jax(models, NAME)
 
 
-@pytest.mark.parametrize("device_loop", [False, True],
-                         ids=["chunk-loop", "device-loop"])
-def test_continuous_serving_equals_one_shot(models, device_loop):
-    base.test_continuous_serving_equals_one_shot(models, NAME, device_loop)
-
-
 def test_sampled_continuous_equals_one_shot(models):
     base.test_sampled_continuous_equals_one_shot(models, NAME)
