@@ -55,7 +55,7 @@ batch's loss and gradient, one state on every rank, checkpoints by rank
 0); ``--mode test`` decodes rows ``[rank::count]`` on each rank and writes
 ``result/{dataset}_{split}_{epoch}.{rank}.answer`` and ``.run``, which
 ``cli/evaluate`` merges; ``--mode avg`` writes on rank 0. ``--mesh_shape
-D`` or ``D,1`` must name the world size. ``--multihost`` without
+D`` or ``D,M`` must name the world size as D. ``--multihost`` without
 torchrun's environment raises.
 
 Without ``--multihost``, ``--mode test`` runs one replica of the model
@@ -66,12 +66,24 @@ over the first d devices, d = gcd(the batch, the ``--continuous`` refill,
 the devices), one continuous loop a device; the result files are one
 process's. ``--device cuda`` (the default) and ``cuda:i`` are one card.
 
+``--mode test --pool_shard --mesh_shape D,M`` (the JAX CLI's pool axis at
+test time) makes each replica a group of M devices of the ``--device``
+list (``cpu,cpu`` or ``cuda:0,cuda:0`` for one group on one device,
+``cuda:0,cuda:1,cuda:2,cuda:3`` for two groups of two cards): each row's
+passage pool splits M ways over its group, the query side and the decode
+run on the group's first device (``models/case.PooledCaSE``), and d =
+gcd(the batch, the refill, n/M) groups take the rows. M must divide the
+devices and the prepared pool; batched, ``--continuous`` and
+``--device_loop`` alike. CaSE only: Masque and TMemNet refuse it
+(ROADMAP item "7b (ii) Masque/TMemNet"), and so does ``--multihost``
+(each rank keeps its per-process data layout, as in the JAX package).
+
 Flags with no effect in the port: ``--fast_rng``/``--no-fast_rng`` (the
 port has one dropout generator, Philox on the card) and the JAX package's
 XLA compile cache. Refused, each with the ROADMAP item that holds it:
-``--pool_shard`` and a ``--mesh_shape`` model axis above 1 (item 7b: the
-pool and vocabulary axes over cards) and ``--ckpt_backend orbax`` (item 2:
-the card has no orbax, and no slice needs its on-disk format).
+``--pool_shard`` and a ``--mesh_shape`` model axis above 1 in training
+(item "7b (ii) training") and ``--ckpt_backend orbax`` (item 2: the card
+has no orbax, and no slice needs its on-disk format).
 """
 
 from __future__ import annotations
@@ -261,11 +273,15 @@ def build_parser():
                         "'dots' keeps matmul outputs, 'dots_batch' also "
                         "batched ones, 'nothing' recomputes all")
     p.add_argument("--mesh_shape", type=str, default="",
-                   help="'D' or 'D,1': the data axis, which must be the "
-                        "world size; a model axis above 1 is not ported "
-                        "(ROADMAP Queue 1 item 7b): refused")
+                   help="'D' or 'D,M': the data axis D, which must be the "
+                        "world size, and with --mode test --pool_shard the "
+                        "pool axis M, the devices of a group; training "
+                        "over M > 1 is not ported (ROADMAP Queue 1 item "
+                        "7b (ii) training): refused")
     p.add_argument("--pool_shard", action="store_true",
-                   help="not ported (ROADMAP Queue 1 item 7b): refused")
+                   help="--mode test: split each passage pool over a group "
+                        "of M devices of the --device list (M from "
+                        "--mesh_shape D,M); training refuses it")
     p.add_argument("--fast_rng", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="no effect in the port: dropout masks come from one "
@@ -277,10 +293,14 @@ def _refuse_unported(args) -> None:
     if args.mode == "ps_train" and args.model not in ("masque", "tmemnet"):
         raise SystemExit("--mode ps_train is only defined for masque and "
                          "tmemnet (their rank-only training)")
-    if args.pool_shard:
-        raise SystemExit("--pool_shard: the pool axis over a 'model' mesh "
-                         f"axis is not ported yet ({mesh.MODEL_AXIS_ITEM}); "
-                         "data parallelism over cards is --multihost")
+    if args.pool_shard and args.mode in ("train", "ps_train"):
+        raise SystemExit("--pool_shard: training over the pool axis is not "
+                         f"ported yet ({mesh.POOL_TRAINING_ITEM}); "
+                         "data parallelism over cards is --multihost, and "
+                         "--mode test takes --pool_shard")
+    if args.pool_shard and args.mode != "test":
+        raise SystemExit("--pool_shard applies to --mode test (and to "
+                         "cli/serve)")
     if args.ckpt_backend == "orbax":
         raise SystemExit("--ckpt_backend orbax: not ported (ROADMAP Queue 1 "
                          "item 2: the port writes its own checkpoints and "
@@ -382,6 +402,7 @@ def test(args):
 
     prepared, output, _unused, vocab, mcfg = setup(args, need_train=False)
     args.output_path = output
+    pool = _pool_devices(args)
     sizes = [args.batch_size]
     if args.continuous:
         if args.rank_only or args.beam_width > 1 or args.decoding != "greedy":
@@ -394,9 +415,13 @@ def test(args):
                              f"--chunk_steps >= 1; got refill {refill}, "
                              f"chunk_steps {args.chunk_steps}")
         sizes.append(refill)
-    # one replica a device of the host (the JAX Trainer.predict's
-    # local_mesh); a rank of a process group keeps its own card
-    devs = resolve_devices(args.device, sizes)
+    # one replica a device of the host, or a group of `pool` devices (the
+    # JAX Trainer.predict's local_mesh); a rank of a process group keeps
+    # its own card
+    try:
+        groups = resolve_devices(args.device, sizes, pool)
+    except ValueError as e:
+        raise SystemExit(str(e))
 
     splits = []
     for split in ("dev", "test"):
@@ -404,6 +429,11 @@ def test(args):
         if os.path.exists(path):
             arrays, meta, _, _ = load_prepared(prepared, split, args.model)
             if len(meta) > 0:
+                try:
+                    mesh.split_pool({k: v[:0] for k, v in arrays.items()
+                                     if k in mesh.POOL_AXIS_KEYS}, pool)
+                except ValueError as e:
+                    raise SystemExit(f"--pool_shard, {split} split: {e}")
                 splits.append((split, arrays, meta))
     if not splits:
         print("[run] no dev/test splits prepared; nothing to do", flush=True)
@@ -433,8 +463,8 @@ def test(args):
         if reps is not None:
             reps.sync()
         if predict_fn is None:
-            reps = Replicas(model, devs)
             try:
+                reps = Replicas(model, groups)
                 predict_fn = make_replicated_predict(
                     reps, model.cfg, args.max_target_length,
                     beam_width=args.beam_width, early_exit=args.early_exit,
@@ -452,11 +482,26 @@ def test(args):
             if conts is not None:
                 preds = _predict_continuous(args, conts, arrays, reps)
             else:
-                preds = predict(arrays, predict_fn, args.batch_size)
+                preds = predict(arrays, predict_fn, args.batch_size,
+                                pool_devices=pool)
             save_results(preds, meta, vocab, output, mesh.process_index(),
                          epoch, f"{args.dataset}_{split}")
     if reps is not None:
         reps.close()
+
+
+def _pool_devices(args) -> int:
+    """``--mode test``'s group size M: ``--mesh_shape D,M``'s M with
+    ``--pool_shard`` (which needs M above 1), else 1. A model axis above 1
+    without ``--pool_shard`` is refused, never ignored."""
+    m = _mesh_shape(args)[1] if args.mesh_shape else 1
+    if args.pool_shard and m <= 1:
+        raise SystemExit("--pool_shard needs --mesh_shape with model>1 "
+                         "(e.g. --mesh_shape 1,2)")
+    if m > 1 and not args.pool_shard:
+        raise SystemExit(f"--mesh_shape {args.mesh_shape}: the model axis "
+                         f"is the pool axis at test time; add --pool_shard")
+    return m
 
 
 def _continuous_fns(args, model, device, d: int = 1):
@@ -591,12 +636,13 @@ def set_switches(args) -> None:
 
 
 def _mesh_shape(args) -> tuple:
-    """``--mesh_shape`` as (D, M), checked against the world size; () when
-    not given."""
+    """``--mesh_shape`` as (D, M), checked against the world size (M above
+    1 for ``--mode test`` only); () when not given."""
     if not args.mesh_shape:
         return ()
     try:
-        return mesh.parse_mesh_shape(args.mesh_shape)
+        return mesh.parse_mesh_shape(args.mesh_shape,
+                                     pool=args.mode == "test")
     except ValueError as e:
         raise SystemExit(str(e))
 

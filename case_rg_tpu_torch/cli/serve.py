@@ -94,8 +94,17 @@ arrivals go to the replica with the fewest requests in hand, and answers
 come back in request order, as on one card. ``--from_export`` serves on
 one device.
 
-Not served by the port yet: ``--pool_shard`` > 1 (the pool axis over
-cards, ROADMAP Queue 1 item 7b), refused with a message.
+``--pool_shard N`` (the JAX CLI's pool axis) makes each replica a group of
+N devices of the ``--device`` list (``cpu,cpu`` or ``cuda:0,cuda:0``: one
+group on one device; ``cuda:0,cuda:1,cuda:2,cuda:3`` with N = 2: two
+groups of two cards): each request's passage pool splits N ways over its
+group, and the query side and the decode run on the group's first device
+(``models/case.PooledCaSE``). N must divide the devices and every served
+pool size (``--num_passage``, each ``--pool_buckets`` size); batched,
+``--continuous``, ``--device_loop`` and ``--listen`` alike. CaSE only:
+Masque and TMemNet refuse it (ROADMAP Queue 1 item "7b (ii)
+Masque/TMemNet"), the models without a pool refuse it, and so does
+``--from_export``, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -244,8 +253,9 @@ def build_parser():
                    help="--continuous: coalesce refills - wait until this "
                         "many rows are free before a mid-flight refill")
     p.add_argument("--pool_shard", type=int, default=1,
-                   help="shard the passage pool over devices (not ported "
-                        "yet: ROADMAP Queue 1 item 7b)")
+                   help="split each passage pool over a group of N devices "
+                        "of the --device list (N must divide the devices "
+                        "and every served pool size); CaSE only")
     p.add_argument("--pool_buckets", type=str, default="",
                    help="comma-separated static pool sizes (e.g. 2,5,10); "
                         "requests are routed to the smallest bucket that "
@@ -282,10 +292,19 @@ def resolve_batch_size(batch_size, rank_only):
     return 128 if rank_only else 64
 
 
-def _refuse_unported(args) -> None:
-    if args.pool_shard > 1:
-        raise SystemExit("--pool_shard > 1: the pool axis over cards is not "
-                         "ported yet (ROADMAP Queue 1 item 7b)")
+def _pool_devices(args, dcfg) -> int:
+    """``--pool_shard``'s group size, which must divide every served pool
+    size (the JAX CLI's check and message)."""
+    n = max(1, args.pool_shard)
+    if n > 1:
+        pools = (parse_buckets(args.pool_buckets, dcfg.num_passage)
+                 if args.pool_buckets else [dcfg.num_passage])
+        bad = [k for k in pools if k % n]
+        if bad:
+            raise SystemExit(
+                f"--pool_shard {n} must divide every served pool size; "
+                f"offending: {bad} (pool buckets {pools})")
+    return n
 
 
 def _from_export_args(args) -> dict:
@@ -383,7 +402,6 @@ def main(argv=None, _server_ready=None):
     send requests and ``shutdown()`` it."""
     args = build_parser().parse_args(argv)
     sidecar = _from_export_args(args) if args.from_export else None
-    _refuse_unported(args)
     if sidecar is None and (args.model is None or args.output_path is None):
         raise SystemExit("--model and --output_path are required (unless "
                          "--from_export)")
@@ -442,21 +460,26 @@ def main(argv=None, _server_ready=None):
         def run_predict(batch):
             return Pending([call(batch)])
     else:
-        # the serving mesh: a replica a device of the data axis, d =
-        # gcd(every batch bucket, the devices); one device is one replica
-        devs = resolve_devices(args.device, bbuckets)
+        # the serving mesh: a replica a device of the data axis, or a group
+        # of --pool_shard devices, d = gcd(every batch bucket, the devices
+        # / the group size); one device is one replica
+        pool = _pool_devices(args, dcfg)
+        try:
+            groups = resolve_devices(args.device, bbuckets, pool)
+        except ValueError as e:
+            raise SystemExit(str(e))
         epoch = _resolve_epoch(args)
         mcfg, model = load_model(args, vocab, epoch)
-        reps = Replicas(model, devs)
         try:
+            reps = Replicas(model, groups)
             run_predict = make_replicated_predict(
                 reps, mcfg, args.max_target_length,
                 beam_width=args.beam_width, early_exit=args.early_exit,
                 fast_argmax=args.fast_argmax, decoding=args.decoding,
                 sample_seed=args.sample_seed, temperature=args.temperature,
                 top_k=args.top_k, top_p=args.top_p, rank_only=args.rank_only)
-        except ValueError as e:   # --rank_only on a model without a rank head
-            raise SystemExit(str(e))
+        except ValueError as e:   # --rank_only without a rank head, a model
+            raise SystemExit(str(e))   # without a pool split
 
     def responses_for(chunk, out, dcfg_k, default_ids=None) -> List[dict]:
         nonlocal served
@@ -628,6 +651,8 @@ def main(argv=None, _server_ready=None):
         ("bf16" if args.bf16 else "f32")
     where = "" if reps is None or len(reps) == 1 else \
         f", {len(reps)} replicas"
+    if reps is not None and reps.pool > 1:
+        where += f", pool split {reps.pool} ways"
     if cont is not None:
         print(f"[serve] {served} requests answered continuously "
               f"({stats['chunks']} chunks, {stats['refills']} refills, "

@@ -69,11 +69,13 @@ class ModelConfig:
 class TrainConfig:
     """The training loop's knobs: the port's copy of the fields of
     ``case_rg_tpu.config.TrainConfig``, with the same defaults. Left out:
-    the axis names and ``shard_vocab_dim`` (the 'model' axis, ROADMAP Queue
-    1 item 7b) and ``ckpt_backend`` (the port writes its own checkpoint
-    format only). ``mesh_shape`` is the data axis only: () or (D,) or
-    (D, 1), D the ranks torchrun started (``runtime/mesh``);
-    ``pool_shard=True`` is refused by the trainer (item 7b)."""
+    the axis names and ``shard_vocab_dim`` (vocabulary sharding, ROADMAP
+    Queue 1 item 7b (iii)) and ``ckpt_backend`` (the port writes its own
+    checkpoint format only). ``mesh_shape`` is the data axis only: () or
+    (D,) or (D, 1), D the ranks torchrun started (``runtime/mesh``);
+    ``pool_shard=True`` is refused by the trainer (item "7b (ii)
+    training"; testing and serving split the pool, ``runtime/mesh.
+    local_groups``)."""
 
     batch_size: int = 16
     epochs: int = 20

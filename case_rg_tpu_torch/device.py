@@ -2,9 +2,10 @@
 
 The entry points default to ``device="cuda"``. Without a card they raise
 instead of running on the CPU; the CPU is used only when a caller asks for
-it (the tests do). ``resolve_devices`` gives the replicas that a device
-list names (``runtime/replicas.py``). In a process group that ``runtime/mesh.init_distributed``
-made on the card, "cuda" is this rank's card, ``cuda:LOCAL_RANK``."""
+it (the tests do). ``resolve_devices`` gives the device groups, a
+replica each, that a device list names (``runtime/replicas.py``). In a
+process group that ``runtime/mesh.init_distributed`` made on the card,
+"cuda" is this rank's card, ``cuda:LOCAL_RANK``."""
 
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import List
 import numpy as np
 import torch
 
-from .runtime.mesh import local_device, local_replicas
+from .runtime.mesh import local_device, local_groups
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -30,12 +31,15 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-def resolve_devices(device="cuda", sizes=()) -> List[torch.device]:
-    """The replicas that serving and testing run on, one model copy a
-    device (``runtime/mesh.local_replicas``: "cuda" = one card, a comma
-    list = its devices, d = gcd(every batch size, the devices)). Raises
-    without a card unless the CPU is asked for."""
-    return local_replicas(sizes, device)
+def resolve_devices(device="cuda", sizes=(), pool: int = 1
+                    ) -> List[List[torch.device]]:
+    """The device groups that serving and testing run on, a replica a
+    group (``runtime/mesh.local_groups``: "cuda" = one card, a comma list
+    = its devices; d groups of ``pool`` devices, d = gcd(every batch size,
+    the devices / ``pool``)): ``runtime/replicas.Replicas(model, groups)``
+    takes them. Raises without a card unless the CPU is asked for, and
+    where ``pool`` does not divide the devices."""
+    return local_groups(sizes, device, pool)
 
 
 def batch_to_device(batch: dict, device: torch.device) -> dict:

@@ -81,6 +81,14 @@ class MasqueModel(nn.Module):
         loss_rg = nll_from_probs(prob_at, batch["response"], w)
         return {"select": 0.25 * loss_ps, "gen": loss_rg}
 
+    def over_pool(self, shards, devices):
+        """Refused: Masque's batches carry a passage pool too, but its split
+        is not ported yet (the JAX package's GSPMD shards it)."""
+        from ..runtime.mesh import POOL_MODELS_ITEM
+        raise ValueError(f"--pool_shard: Masque's pool split is not ported "
+                         f"yet ({POOL_MODELS_ITEM}); serve it without "
+                         f"--pool_shard")
+
     def rank(self, batch) -> torch.Tensor:
         """Passage scores only (rank-only serving): the encoder and the
         tower, without the decoder."""

@@ -141,6 +141,14 @@ class TMemNetModel(nn.Module):
         return {"select": 0.25 * bce_with_logits(ck_attn, label_1h, w),
                 "gen": cross_entropy(self.gen(out), tgt_out, w)}
 
+    def over_pool(self, shards, devices):
+        """Refused: TMemNet's batches carry a passage pool too, but its split
+        is not ported yet (the JAX package's GSPMD shards it)."""
+        from ..runtime.mesh import POOL_MODELS_ITEM
+        raise ValueError(f"--pool_shard: TMemNet's pool split is not ported "
+                         f"yet ({POOL_MODELS_ITEM}); serve it without "
+                         f"--pool_shard")
+
     def rank(self, batch) -> torch.Tensor:
         """The knowledge attention [B, K] alone (no decoder memory)."""
         return self._knowledge(batch)[-1]

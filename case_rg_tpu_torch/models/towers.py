@@ -1,10 +1,16 @@
 """Interaction ranking towers (port of ``case_rg_tpu/models/towers.py``):
 dual query<->passage interaction producing 5D features, then a stack of
-4-D transformer blocks (first block 5D -> D) over each side."""
+4-D transformer blocks (first block 5D -> D) over each side.
+
+Over a device group (``models/case.PooledCaSE``) a tower runs in two
+steps: ``pool_side`` on each shard's passages (the interaction and the
+passage blocks; the query side pooled over the shard's passages only),
+then ``query_side`` on the group's first device over the shards' query
+sides joined (``Interaction.join``)."""
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -39,8 +45,30 @@ class InteractionTower(nn.Module):
         (query_reps [B, 1, Lq, D], passage_reps [B, P, Lp, D])."""
         q, p = self.interaction(enc_query, enc_passage, query_keep,
                                 passage_keep)
-        for blk in self._blocks("q", self.query_blocks):
-            q = blk(q, query_keep, gen)
-        for blk in self._blocks("p", self.passage_blocks):
-            p = blk(p, passage_keep, gen)
+        q = self._run("q", q, query_keep, gen)
+        p = self._run("p", p, passage_keep, gen)
         return q, p
+
+    def _run(self, side: str, x: torch.Tensor, keep: torch.Tensor,
+             gen: Optional[torch.Generator]) -> torch.Tensor:
+        n = self.query_blocks if side == "q" else self.passage_blocks
+        for blk in self._blocks(side, n):
+            x = blk(x, keep, gen)
+        return x
+
+    def pool_side(self, enc_query: torch.Tensor, enc_passage: torch.Tensor,
+                  query_keep: torch.Tensor, passage_keep: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One shard of a split pool (inference): (the interaction's query
+        side pooled over this shard's passages [B, 1, Lq, 5D], the passage
+        reps after the passage blocks [B, P/M, Lp, D])."""
+        q, p = self.interaction(enc_query, enc_passage, query_keep,
+                                passage_keep)
+        return q, self._run("p", p, passage_keep, None)
+
+    def query_side(self, parts: Sequence[torch.Tensor],
+                   query_keep: torch.Tensor) -> torch.Tensor:
+        """The query reps [B, 1, Lq, D] from the shards' ``pool_side``
+        query sides (on ``query_keep``'s device): joined, then the query
+        blocks."""
+        return self._run("q", self.interaction.join(parts), query_keep, None)

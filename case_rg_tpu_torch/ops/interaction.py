@@ -5,11 +5,18 @@ The trilinear score is decomposed as
 ``U[l, m] = Ep[l].w_p + Eq[m].w_q + (Ep[l] * w_x).Eq[m]`` so the only
 O(Lp*Lq) tensor is U itself. ``dual_att`` holds the reference's
 ``dual_att_linear`` weight [1, 3D] in the order [w_q; w_p; w_x].
+
+With one query sequence against P passages the query side is max-pooled
+over the passages. Over a device group (the pool axis, ``models/case.
+PooledCaSE``) that pool is two steps: ``forward`` on each shard's passages
+pools over them, and ``join`` takes the maximum over the shards' results.
+A maximum is exact, so the two steps give the unsplit pool bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import Sequence, Tuple
 
 import torch
 from torch import nn
@@ -64,3 +71,10 @@ class Interaction(nn.Module):
         if nq != np_:
             g_p_q = g_p_q.amax(dim=1, keepdim=True)
         return g_p_q, g_q_p
+
+    @staticmethod
+    def join(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The query side pooled over a whole pool from ``forward``'s query
+        sides over its shards ([B, 1, Lq, 5D] each, on one device): their
+        elementwise maximum."""
+        return functools.reduce(torch.maximum, parts)

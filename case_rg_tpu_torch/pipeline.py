@@ -94,7 +94,7 @@ class Pipeline:
         from .train.checkpoint import (best_epoch, checkpoint_exists,
                                        latest_epoch)
 
-        devs = resolve_devices(device, [batch_size])
+        groups = resolve_devices(device, [batch_size])
         vocab = Vocabulary.load(os.path.join(prepared_dir, "vocab.txt"))
         dcfg = DataConfig(query_len=query_len, passage_len=passage_len,
                           num_passage=num_passage,
@@ -123,7 +123,7 @@ class Pipeline:
             beam_width=beam_width, min_window_size=min_window_size,
             num_windows=num_windows), vocab, epoch)
         predict_fn = make_replicated_predict(
-            Replicas(net, devs), mcfg, max_target_length,
+            Replicas(net, groups), mcfg, max_target_length,
             beam_width=beam_width, early_exit=early_exit,
             fast_argmax=fast_argmax, decoding=decoding,
             sample_seed=sample_seed, temperature=temperature, top_k=top_k,

@@ -36,6 +36,13 @@ The host tops up the ring with encoded buckets while a mega runs. Where
 the JAX module's loop exits early, the graph runs all K chunks; the idle
 ones change no result (see ``device_loop``).
 
+Over a device group of M devices (a replica of ``runtime/replicas.
+Replicas``) the model is ``models/case.PooledCaSE``: every encode (a cold
+start or a refill bucket) splits each row's passage pool M ways over the
+group, and the decode state it returns, and so every chunk, refill and
+harvest, lives on the group's first device. The loops need nothing of
+their own for it.
+
 Layout: ``base`` (program builders, ``refill_rows``, the decode-state tree
 walk, host copies both ways, request sources, the lazy rank handle),
 ``single`` (the one-lane driver ``run_continuous``), ``multi`` (``Lane``

@@ -69,6 +69,11 @@ What does not carry over from the JAX module, and what the port does:
   parameter's and buffer's ``(data_ptr, _version)`` (host reads) with the
   capture's; if one differs it captures again.
 
+Over a device group (``models/case.PooledCaSE``) the live state, the
+ring, the log and the captured megas are all on the group's first card:
+only ``init_fn``'s encode runs on the group's other cards, and it stays
+eager, outside the graph, since a capture records one card's stream.
+
 Buffers, and on the card the graph, are kept per lane shape (the row
 shapes of the decode state) on the ``DeviceLoopFns``, as the JAX package's
 jit keeps one executable per shape: runs that reuse a ``DeviceLoopFns``

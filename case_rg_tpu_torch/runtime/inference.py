@@ -8,8 +8,10 @@ serving.
 * s2sa, gttp, glks -> {"answer"} through ``models/predict.py``.
 
 ``make_replicated_predict`` runs the same function over ``Replicas``, one
-row block a device (the JAX package's predict over ``local_mesh`` with
-``shard_batch``).
+row block a replica (the JAX package's predict over ``local_mesh`` with
+``shard_batch``); a replica over a device group of M devices
+(``Replicas(model, groups)``) splits each of its rows' passage pools M ways
+(``models/case.PooledCaSE``).
 """
 
 from __future__ import annotations
@@ -83,21 +85,24 @@ def make_replicated_predict(replicas, cfg: ModelConfig, max_len: int, *,
     (``keys_from_seed(sample_seed, B, stream=call index)``, as one device
     does) and gives each replica its rows' keys, so a split batch samples
     what the unsplit batch samples. With one replica the function is
-    ``make_predict_fn``'s, its outputs copied to the host."""
+    ``make_predict_fn``'s, its outputs copied to the host. The function's
+    ``pool_devices`` is the replicas' group size (``train/trainer.predict``
+    checks it)."""
     from .replicas import Pending
     fns = [make_predict_fn(m, cfg, max_len, decoding=decoding,
                            sample_seed=sample_seed, device=d, **kw)
            for m, d in zip(replicas.models, replicas.devices)]
-    if len(replicas) == 1:
-        return lambda batch: Pending([fns[0](batch)])
     counter = itertools.count()
 
     def fn(batch):
+        if len(fns) == 1:
+            return Pending([fns[0](batch)])
         if decoding == "sample" and batch.get("sample_key") is None:
             batch = dict(batch, sample_key=keys_from_seed(
                 sample_seed, _rows(batch), stream=next(counter)))
         return Pending.of_blocks(replicas.map(
             lambda i, blk: Pending([fns[i](blk)]), replicas.split(batch)))
+    fn.pool_devices = replicas.pool
     return fn
 
 

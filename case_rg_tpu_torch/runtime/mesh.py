@@ -25,17 +25,22 @@ own layout for the same thing, one process per card started by
 Without a process group every function is the single-process identity:
 ``process_index()`` 0, ``process_count()`` 1, no collective.
 
-In one process, ``local_replicas`` is the data axis of the JAX
-``local_mesh``: the devices that serving and testing run one replica of
-the model on each (``runtime/replicas.py``), d = gcd(every batch size,
-the devices named). A plain "cuda" names one card: replicas are asked
-for by a device list, since thread replicas serve slower than one card
-(PERF.md §6).
+In one process, ``local_groups`` is the JAX ``local_mesh``: the devices
+that serving and testing run on, d replicas of M devices each
+(``runtime/replicas.py``). The data axis d = gcd(every batch size, n/M)
+of the n devices named; replica i's group, ``devices[i*M:(i+1)*M]``, is
+the JAX layout ``devices[:d*M].reshape(d, M)``. The 'model' axis M is the
+pool axis (``--pool_shard``): each device of a group encodes and scores
+P/M passages of every row (``split_pool`` cuts the ``POOL_AXIS_KEYS``
+fields, ``models/case.PooledCaSE`` runs the joins); with M = 1 a group
+is one device, the data axis alone. A plain "cuda" names one card:
+replicas are asked for by a device list, since thread replicas serve
+slower than one card (PERF.md §6).
 
-Not ported yet (ROADMAP Queue 1 item 7b): the 'model' axis, i.e. the pool
-axis sharded over cards (``pool_sharding``, ``shard_batch(pool_axis=True)``)
-and vocabulary-dimension sharding (``param_sharding_tree``).
-``parse_mesh_shape`` refuses a model axis above 1.
+Not ported yet: the pool axis in training (ROADMAP Queue 1 item "7b (ii)
+training"; ``parse_mesh_shape(..., pool=False)`` and the trainer refuse
+it), for Masque and TMemNet (item "7b (ii) Masque/TMemNet"), and
+vocabulary-dimension sharding (``param_sharding_tree``, item 7b (iii)).
 """
 
 from __future__ import annotations
@@ -55,7 +60,15 @@ _HOST_GROUP = None          # gloo group over every rank, for host flags
 _OWNED = False              # init_distributed made the default group
 _DEVICE: Optional[torch.device] = None
 _LOSS_GROUP = False         # inside global_batch(): losses are global
-MODEL_AXIS_ITEM = "ROADMAP Queue 1 item 7b"
+POOL_TRAINING_ITEM = "ROADMAP Queue 1 item 7b (ii) training"
+POOL_MODELS_ITEM = "ROADMAP Queue 1 item 7b (ii) Masque/TMemNet"
+
+# [B, num_passage, ...] batch fields whose passage-pool axis splits over a
+# group (the JAX package's pool_sharding over 'model'): the ranking towers
+# and the per-passage encoders are independent along this axis until the
+# cross-passage joins (the Interaction max-pool, the scores' and the
+# decode memory's concatenation, the prior's normalisation).
+POOL_AXIS_KEYS = ("passage", "token_label", "token_weight")
 
 
 def is_distributed() -> bool:
@@ -76,18 +89,22 @@ def local_device() -> Optional[torch.device]:
     return _DEVICE
 
 
-def local_replicas(sizes: Iterable[int] = (), device="cuda"
-                   ) -> List[torch.device]:
-    """The devices of this process's data axis (the JAX ``local_mesh``'s,
-    ``model=1``): the first d of the named devices, d = gcd(every size in
-    ``sizes``, their count), so every batch size splits evenly. Sizes of 0
-    are ignored; with none, every named device.
+def local_groups(sizes: Iterable[int] = (), device="cuda", model: int = 1
+                 ) -> List[List[torch.device]]:
+    """The device groups of this process (the JAX ``local_mesh``): d groups
+    of ``model`` devices, the first d*model of the named devices in order,
+    d = gcd(every size in ``sizes``, their count / ``model``), so every
+    batch size splits evenly over the data axis. Sizes of 0 are ignored.
 
     ``device``: "cuda" names one card (the current one; in a process
     group, this rank's card: a rank does not replicate), "cuda:i" that
-    card, "cpu" one CPU replica, and a comma list ("cpu,cpu",
-    "cuda:0,cuda:0", "cuda:0,cuda:1") the replicas outright, a device a
-    replica. Raises without a card unless only the CPU is named."""
+    card, "cpu" one CPU device, and a comma list ("cpu,cpu",
+    "cuda:0,cuda:0", "cuda:0,cuda:1") the devices outright; a device may
+    be named twice (two group members or replicas on one card). Raises
+    without a card unless only the CPU is named, when ``model`` does not
+    divide the devices (the JAX message), and for ``model`` above 1 in a
+    process group (multi-process testing keeps its per-process data
+    layout, as the JAX ``Trainer.predict`` does)."""
     spec = str(device)
     devs = [torch.device(x.strip()) for x in spec.split(",") if x.strip()]
     if not devs:
@@ -96,15 +113,49 @@ def local_replicas(sizes: Iterable[int] = (), device="cuda"
         raise RuntimeError(
             "case_rg_tpu_torch: a CUDA device was requested but torch sees "
             "none; pass device='cpu' to run on the CPU")
+    model = max(1, int(model))
     if is_distributed():
+        if model > 1:
+            raise ValueError(
+                "the pool axis is single-process: in a process group each "
+                "rank keeps its per-process data layout (the JAX "
+                "Trainer.predict's); run one process with a --device list")
         own = local_device()
-        return [own if own is not None and devs[0].type == "cuda"
-                and devs[0].index is None else devs[0]]
-    d = len(devs)
-    for n in sizes:
-        if n:
-            d = math.gcd(d, int(n))
-    return devs[:d]
+        return [[own if own is not None and devs[0].type == "cuda"
+                 and devs[0].index is None else devs[0]]]
+    n = len(devs)
+    if n % model:
+        raise ValueError(f"model axis {model} does not divide the {n} local "
+                         f"devices")
+    d = n // model
+    for s in sizes:
+        if s:
+            d = math.gcd(d, int(s))
+    return [devs[i * model:(i + 1) * model] for i in range(d)]
+
+
+def split_pool(batch: dict, m: int) -> List[dict]:
+    """``batch`` as ``m`` shards of its passage pool: every
+    ``POOL_AXIS_KEYS`` field of two or more dims cut into m contiguous
+    blocks along axis 1 (shard j holds passages [j*P/m, (j+1)*P/m)), every
+    other field whole in each shard. Raises, as the JAX ``shard_batch``
+    does, when m does not divide the pool."""
+    out = [dict() for _ in range(m)]
+    for k, v in batch.items():
+        if k in POOL_AXIS_KEYS and v.ndim >= 2:
+            if v.shape[1] % m:
+                raise ValueError(
+                    f"pool sharding: '{k}' pool axis ({v.shape[1]}) is not "
+                    f"divisible by the 'model' mesh axis ({m}); pick a mesh "
+                    f"whose model axis divides num_passage (e.g. 2 or 5 "
+                    f"for the 10-passage CAsT pool)")
+            n = v.shape[1] // m
+            for j in range(m):
+                out[j][k] = v[:, j * n:(j + 1) * n]
+        else:
+            for j in range(m):
+                out[j][k] = v
+    return out
 
 
 def init_distributed(device="cuda", timeout_s: float = 1800.0
@@ -168,11 +219,12 @@ def shutdown() -> None:
     _HOST_GROUP, _OWNED, _DEVICE = None, False, None
 
 
-def parse_mesh_shape(spec: str, world: Optional[int] = None
-                     ) -> Tuple[int, int]:
+def parse_mesh_shape(spec: str, world: Optional[int] = None,
+                     pool: bool = False) -> Tuple[int, int]:
     """``"D"`` or ``"D,M"`` -> (D, M). D must equal the world size (the
-    ranks torchrun started, 1 without a group); a model axis M above 1 is
-    refused (pool and vocabulary sharding: ROADMAP Queue 1 item 7b)."""
+    ranks torchrun started, 1 without a group). M is the pool axis's group
+    size (``local_groups``), taken for testing and serving (``pool=True``);
+    training refuses M above 1 (ROADMAP Queue 1 item "7b (ii) training")."""
     world = process_count() if world is None else world
     try:
         dims = tuple(int(x) for x in spec.split(",") if x.strip())
@@ -181,10 +233,11 @@ def parse_mesh_shape(spec: str, world: Optional[int] = None
     if not 1 <= len(dims) <= 2 or min(dims) < 1:
         raise ValueError(f"--mesh_shape {spec!r}: not 'D' or 'D,M'")
     d, m = dims[0], (dims[1] if len(dims) == 2 else 1)
-    if m > 1:
+    if m > 1 and not pool:
         raise ValueError(f"--mesh_shape {spec!r}: a 'model' axis above 1 "
-                         f"(pool or vocabulary sharding) is not ported yet "
-                         f"({MODEL_AXIS_ITEM})")
+                         f"(the pool axis) is taken for testing and serving "
+                         f"only; training over it is not ported yet "
+                         f"({POOL_TRAINING_ITEM})")
     if d != world:
         raise ValueError(f"--mesh_shape {spec!r}: the data axis {d} is not "
                          f"the world size {world} (one rank a card, started "

@@ -1,13 +1,13 @@
 """One replica of a model on each device of the process: the serving
 mesh's data axis (port of ``replicated`` and ``shard_batch`` of
-``case_rg_tpu/runtime/mesh.py``, over the devices of ``local_replicas``).
+``case_rg_tpu/runtime/mesh.py``, over the device groups of ``local_groups``).
 
 The JAX package replicates the parameters over the 'data' axis of
 ``local_mesh`` and shards each batch by rows; XLA runs each shard on its
 device, and the outputs come back as one array in row order. The port does
 the same by hand:
 
-* ``Replicas(model, devices)`` copies the loaded, cast model to each
+* ``Replicas(model, groups)`` copies the loaded, cast model to each
   device once (the first replica is ``model`` itself);
 * ``split`` cuts a batch into d contiguous row blocks (the shards of
   ``shard_batch``), ``Pending.get`` puts the outputs back in row order;
@@ -26,6 +26,16 @@ the same by hand:
 
 The decode math is row-independent, so a replica's answers for its rows
 are what one device gives for the same rows.
+
+Over groups of M devices (``--pool_shard``) a replica is a group, the
+JAX ``local_mesh``'s 'model' axis (``runtime/mesh.local_groups``): the
+model is copied once to each other device of the group, and the
+replica's model is the model over its group (``CaSEModel.over_pool`` ->
+``models/case.PooledCaSE``), which splits each row's passage pool M ways
+and decodes on the group's first device. One host thread drives a group;
+its current stream is a stream of its own on each card of the group.
+Models without a pool split refuse it (Masque and TMemNet name their
+ROADMAP item).
 """
 
 from __future__ import annotations
@@ -43,52 +53,81 @@ import torch
 from .continuous.base import HostCopy, IterSource, QueueSource
 
 
-def _enter(dev: torch.device, threads: int) -> None:
-    """A replica thread's start: a stream of its own on its card, and the
-    creating thread's count of intra-op CPU threads (a new thread would
-    otherwise take the host's default)."""
+def _enter(group: Sequence[torch.device], threads: int) -> None:
+    """A replica thread's start: a stream of its own on each card of its
+    group (the first card's set last, so it is the thread's current
+    device), and the creating thread's count of intra-op CPU threads (a
+    new thread would otherwise take the host's default)."""
     torch.set_num_threads(threads)
-    if dev.type == "cuda":
-        torch.cuda.set_stream(torch.cuda.Stream(dev))
+    for dev in dict.fromkeys(reversed(group)):
+        if dev.type == "cuda":
+            torch.cuda.set_stream(torch.cuda.Stream(dev))
 
 
 class Replicas:
-    """``model`` (already loaded and cast, on ``devices[0]``) and a copy of
-    it on each other device of ``devices``, each with a host thread."""
+    """``model`` (already loaded and cast, on the first group's first
+    device) and a copy of it on each other device of ``groups``: a replica
+    a group, each with a host thread. A group is a device (a replica of
+    one device) or a list of devices (``runtime/mesh.local_groups``; the
+    replica's model is then the model over its group, ``over_pool``).
+    ``devices`` holds each replica's first device and ``models`` each
+    replica's model."""
 
-    def __init__(self, model: torch.nn.Module,
-                 devices: Sequence[torch.device]):
-        self.devices = [torch.device(d) for d in devices]
+    def __init__(self, model: torch.nn.Module, groups: Sequence):
+        self.groups = [[torch.device(d) for d in g]
+                       if isinstance(g, (list, tuple)) else [torch.device(g)]
+                       for g in groups]
+        self.devices = [g[0] for g in self.groups]
+        self.pool = max((len(g) for g in self.groups), default=1)
         where = next(model.parameters()).device
         if not self.devices or where != _canonical(self.devices[0]):
             raise ValueError(f"the model lives on {where}, not on the first "
                              f"replica's device {self.devices[:1]}")
+        if self.pool > 1 and not hasattr(model, "over_pool"):
+            raise ValueError(f"--pool_shard: {type(model).__name__} has no "
+                             f"passage pool to split")
         # caches derived from the weights (MultiMemoryDecoder's folds) are
         # keyed by the weights' storage, so a copy folds its own again
-        self.models = [model] + [copy.deepcopy(model).to(d)
-                                 for d in self.devices[1:]]
-        for d in set(self.devices):
-            if d.type == "cuda":
-                torch.cuda.synchronize(d)   # the copies, before other streams
+        self._source, self._copies, self.models = model, [], []
+        for group in self.groups:
+            first = model if not self.models else self._copy(model,
+                                                             group[0])
+            on = {_canonical(group[0]): first}
+            for d in group[1:]:
+                if _canonical(d) not in on:
+                    on[_canonical(d)] = self._copy(first, d)
+            self.models.append(first if len(group) == 1 else first.over_pool(
+                [on[_canonical(d)] for d in group], group))
+        self._sync_cards()
         self._pools = None
         if len(self.devices) > 1:
             self._pools = [ThreadPoolExecutor(
-                1, initializer=_enter, initargs=(d, torch.get_num_threads()))
-                for d in self.devices]
+                1, initializer=_enter, initargs=(g, torch.get_num_threads()))
+                for g in self.groups]
+
+    def _copy(self, model: torch.nn.Module, dev: torch.device):
+        """A copy of ``model`` on ``dev``, kept for ``sync``."""
+        self._copies.append(copy.deepcopy(model).to(dev))
+        return self._copies[-1]
+
+    def _sync_cards(self) -> None:
+        """Wait for the copies, before other streams read them."""
+        for d in {x for g in self.groups for x in g}:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     @torch.no_grad()
     def sync(self) -> None:
         """Copy the first replica's parameters and buffers (new weights
-        loaded into it) into the others."""
-        src = list(self.models[0].parameters()) + \
-            list(self.models[0].buffers())
-        for m in self.models[1:]:
+        loaded into it) into every copy: the other replicas' and the
+        groups' shard models."""
+        src = list(self._source.parameters()) + \
+            list(self._source.buffers())
+        for m in self._copies:
             dst = list(m.parameters()) + list(m.buffers())
             for a, b in zip(dst, src):
                 a.copy_(b)
-        for d in set(self.devices):
-            if d.type == "cuda":
-                torch.cuda.synchronize(d)
+        self._sync_cards()
 
     def __len__(self) -> int:
         return len(self.devices)

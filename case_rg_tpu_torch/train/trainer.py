@@ -247,8 +247,9 @@ class Trainer:
             raise ValueError(f"remat {train_cfg.remat!r} not in "
                              f"{tuple(REMAT_POLICIES)}")
         if train_cfg.pool_shard:
-            raise ValueError("pool_shard: the pool axis over a 'model' mesh "
-                             f"axis is not ported yet ({mesh.MODEL_AXIS_ITEM})")
+            raise ValueError("pool_shard: training over the pool axis is "
+                             f"not ported yet ({mesh.POOL_TRAINING_ITEM}); "
+                             "testing and serving take it")
         if train_cfg.mesh_shape:
             mesh.parse_mesh_shape(",".join(map(str, train_cfg.mesh_shape)))
         self._dp = mesh.is_distributed()
@@ -621,7 +622,8 @@ def _device_fields(batch: dict) -> dict:
 
 def predict(arrays: Dict[str, np.ndarray],
             predict_fn: Callable[[dict], Dict[str, torch.Tensor]],
-            batch_size: int, pipeline_depth: int = 4) -> Iterable[tuple]:
+            batch_size: int, pipeline_depth: int = 4,
+            pool_devices: Optional[int] = None) -> Iterable[tuple]:
     """Yields (host_batch, outputs as numpy) over ``arrays`` in order
     (``Batcher`` without shuffle, the final batch padded). ``predict_fn``
     (``runtime.inference.make_predict_fn``) holds the model, so the weights
@@ -635,7 +637,17 @@ def predict(arrays: Dict[str, np.ndarray],
     Without one, ``predict_fn`` may be
     ``runtime.inference.make_replicated_predict``'s: a batch split over the
     host's replicas, its outputs a ``Pending`` whose row blocks' host
-    copies started in the replicas' threads."""
+    copies started in the replicas' threads.
+
+    ``pool_devices`` (the JAX ``Trainer.predict``'s): the group size M
+    over which ``predict_fn`` splits each row's passage pool. The split is
+    the function's (``make_replicated_predict`` over groups of M devices
+    sets its ``pool_devices``); given, it must be M."""
+    if pool_devices is not None and \
+            getattr(predict_fn, "pool_devices", 1) != pool_devices:
+        raise ValueError(
+            f"pool_devices={pool_devices}: the predict function splits the "
+            f"pool {getattr(predict_fn, 'pool_devices', 1)} way(s)")
     inflight: deque = deque()
     for batch in Batcher(arrays, batch_size, shuffle=False,
                          process_index=mesh.process_index(),

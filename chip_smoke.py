@@ -4,6 +4,7 @@ card.
 
     python3 chip_smoke.py        # from the repository root; needs one card
     python3 chip_smoke.py --only-replicas   # phase 17 alone (several cards)
+    python3 chip_smoke.py --only-pool       # phase 18 alone (several cards)
 
 In order it
   1. prints the card's name and power limit, builds the CUDA kernels from
@@ -140,9 +141,9 @@ In order it
      Then, for each variant, it compares the
      first step's loss and gradient with the kernels (training attention
      and additive_scores) swapped for their plain versions (same dropout
-     bits), runs 10 steps on one repeated batch with the kernels (launch
+     bits), runs 6 steps on one repeated batch with the kernels (launch
      counters set to 0 just before, read just after; the loss must fall),
-     the same 10 steps with the plain versions, profiles two steps with
+     the same 6 steps with the plain versions, profiles two steps with
      torch.profiler, and runs one step under no_host_sync;
  13. takes CaSE from raw files through the port's entry points ("raw
      files"): writes raw CAsT-format TSVs from seed 5 (512 / 128 / 128
@@ -167,7 +168,7 @@ In order it
      the variant the flags select); every loss finite, the last epoch's
      mean loss below the first's, ``best.json`` at the lowest dev total.
      ``--mode avg`` must write the mean of the last three epochs;
-     ``--mode test --bf16_eval`` over every epoch and ``--avg_only`` must
+     ``--mode test --bf16_eval`` on epoch 0 and ``--avg_only`` must
      write what ``make_predict_fn`` on the prepared batches gives (and
      ``--multihost`` in process, a world of one over NCCL, epoch 0's files
      byte for byte), the
@@ -214,16 +215,16 @@ In order it
      batch; (b) a rank-only batch (masque, tmemnet); (c) beam width 4 and
      sampling at top_k=1 (gated against greedy); (f) masque, gttp and glks
      in the pallas argmax mode (combine_copy_mass launches a step; gated
-     against its plain version and against dense); (d) 128 requests through
+     against its plain version and against dense); (d) 80 requests through
      the chunk loop (batch 64, refill 16, chunks of 8; equal to the
      one-shot greedy answers token for token) and the device loop (4 steps a chunk, 8 chunks a mega,
      a ring of 256, lookahead; equal to the chunk loop token for token,
      launches reckoned from the capture); (e) bf16 training over f32
      masters: the first step's loss and gradient against the plain
-     versions, 3 steps on one batch, GLKS 6 (the loss without dropout must
-     fall;
-     the training attention's and additive_scores' launches counted), one
-     step under no_host_sync. A line per model, then the phase's summary;
+     versions, 3 steps on one batch, GLKS 6, the last under no_host_sync
+     (the loss without dropout must fall; the training attention's and
+     additive_scores' launches counted). A line per model, then the
+     phase's summary;
  15. exports and routes ("export and multi-model serving"): (a)
      cli/export_model of CaSE at the serving widths (--bf16, B=64,
      --check) from a checkpoint in the port's format (phase 11's text
@@ -279,28 +280,59 @@ In order it
      merged batch against one card at the serving gates (the token gates
      for every mode with answers); requests/s and device busy/idle share
      of one replica against the replicas, in turns; the host threads' CPU
-     ms against the wall ms, of one replica and of the replicas, these
-     under the GIL's switch interval at 0.1 and 20 ms and with one
-     intra-op thread a replica; the card guard's host µs a launch;
-     (b) the 512 continuous requests over the replicas (a loop a replica at
-     B/d rows, REFILL/d refills): chunk loop and device loop (captures a
-     replica; eager launches plus each capture's record times its
-     replays), both with launches as the one-card formulas give them,
-     sampled chunk loop, each answer against the one-card runs of phases 5-10 (the
-     share equal token for token; the agreement gates); (c) cli/serve on
+     ms against the wall ms, of one replica and of the replicas; the card
+     guard's host µs a launch;
+     (b) the first 256 of phase 7's continuous requests over the replicas
+     (a loop a replica at B/d rows, REFILL/d refills): chunk loop and
+     device loop (captures a replica; eager launches plus each capture's
+     record times its replays), both with launches as the one-card
+     formulas give them, sampled chunk loop, each answer against the
+     one-card runs of phases 5-10 (the share equal token for token; the
+     agreement gates); (c) cli/serve on
      phase 11's text requests over the replicas, batched (equal to one
      card at B/d response for response) and the device loop (against
      phase 11's); (d) cli/run --mode test --avg_only on phase 13's files
      over the replicas (equal to one process at B/d). ``python3
      chip_smoke.py --only-replicas`` runs this phase alone with what it
      needs of phases 1-11, without (d), for a machine with several cards;
- 18. prints one JSON line {"kernels": [...]} and, last, the device line
+ 18. serves and tests with each row's passage pool split over a device
+     group ("pool axis", after phase 17 on the same model, requests,
+     one-card runs and files; runtime/replicas.Replicas over groups of M
+     devices, models/case.PooledCaSE): one group of M = 2 on cuda:0 (the query
+     side once, each shard's 5 passages of every row, the joins and the
+     decode on the group's first device). (a) make_replicated_predict
+     greedy dense, mxu and pallas, beam 4, sampled and rank-only on a B=64
+     batch against the unsplit one-card predict on the same rows: rank
+     within 4 bf16 ulps, at least 95 % of answer tokens equal, and whether
+     every output is equal bit for bit; each kernel's launches those of
+     one card but fused_mha, 8 + 11 M a batch (6 + 8 M rank-only); (b)
+     the 512 continuous requests through the chunk loop and the device
+     loop over the group (the encodes split, the captures on the first
+     card): launches as the one-card formulas give them with fused_mha
+     8 + 11 M an encode, at least 99 % of answers equal to phase 7's
+     one-card run token for token; (c) cli/serve --pool_shard 2 on phase
+     11's text requests, batched: response for response equal to phase
+     11's (a) where (a) found the split bit-equal, else (a)'s gates; (d)
+     cli/run --mode test --avg_only --pool_shard --mesh_shape 1,2 on
+     phase 13's files: the four files against one process's; (e) no gate:
+     requests/s and device busy ms and idle share of the group against
+     one card (greedy dense batches, and each continuous loop).
+     ``python3 chip_smoke.py --only-pool`` runs this phase alone without
+     (c) and (d): on one card as above; with two cards a group over
+     cuda:0,cuda:1, and with four also two groups of two;
+ 19. prints one JSON line {"kernels": [...]} and, last, the device line
      {"ok": true, "device": {...}}.
 
 Phase 17's room was made by cutting phases 5, 7, 14 and 15: the chunk
 loop's reverse-order repeat of pallas and dense, the device-loop knee at
 (4, 16), the other models' second B=64 batch, and a second load of the
-greedy archive in 15 (b), which serves the program 15 (a) loaded.
+greedy archive in 15 (b), which serves the program 15 (a) loaded. Phase
+18's was made by cutting phases 12 to 14 and 17: phase 12 trains 6
+steps a route, not 10; phase 13 tests epoch 0 and the average, not every
+epoch; phase 14 serves 80 requests, not 128, and takes its no_host_sync
+step as the last train step; phase 17 (b) serves 256 requests, not 512,
+and (a) times the host threads without the GIL switch-interval and
+intra-op variants.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It also fails when torch sees no card, and when it stands alone without the
@@ -386,7 +418,8 @@ KEEP_SHARE_TOL = 0.005
 # variants); the limits keep a margin of about 60x and 25x on 1 - cosine.
 FIRST_LOSS_RTOL = 1e-3
 FIRST_GRAD_COSINE = 0.9999
-TRAIN_STEPS, TRAIN_WARMUP = 10, 2
+# steps a route on one batch (10 until phase 18 needed the room)
+TRAIN_STEPS, TRAIN_WARMUP = 6, 2
 
 # single_query_mha shapes: (rows, L, packed): the passage memory (a check
 # at 1000 keys), the query memory, the packed self-attention history
@@ -3096,6 +3129,7 @@ RAW_MID_EVERY = 3              # the subprocess's --checkpoint_every_steps
 # epochs: 0 in a subprocess (SIGTERM in epoch 1); 1-3 resumed in process
 # (in-kernel dropout); 4 with caller-drawn masks; 5 under --profile_dir
 RAW_RESUME_TO, RAW_EPOCHS = 4, 6
+RAW_TESTED = (0, "avg")         # the checkpoints --mode test decodes
 
 
 def raw_corpus(base, words, pieces):
@@ -3533,8 +3567,9 @@ def raw_files(dev, bare_ms):
                   f"avg: {name} {k} is not the mean of epochs 3-5")
     del cks
 
-    # 4. --mode test --bf16_eval: every epoch and the average, batched; the
-    # average through the chunk loop and the device loop
+    # 4. --mode test --bf16_eval: epoch 0 and the average, batched (every
+    # epoch until phase 18 needed the room); the average through the chunk
+    # loop and the device loop
     test_args = common + ["--mode", "test", "--bf16_eval"]
     result = os.path.join(out, "result")
     timed_runs = {}
@@ -3546,7 +3581,7 @@ def raw_files(dev, bare_ms):
         timed_runs[name] = time.perf_counter() - t0
         return os.path.join(output, "result")
 
-    test_run("batched_every_epoch", ["--epoch", str(RAW_EPOCHS)])
+    test_run("batched_epoch_0", ["--epoch", "1"])
     test_run("batched_avg", ["--avg_only"])
     res["world_of_one"]["test"] = world_of_one_test(cli_run, test_args, out)
     cont_out, loop_out = (os.path.join(RAW_DIR, n) for n in ("cont", "loop"))
@@ -3567,7 +3602,7 @@ def raw_files(dev, bare_ms):
         model="case", output_path=out, device="cuda", bf16=True, ema=False,
         embedding_size=E, hidden_size=E, num_heads=H, max_target_length=T_ANS,
         beam_width=1, min_window_size=4, num_windows=1)
-    for epoch in list(range(RAW_EPOCHS)) + ["avg"]:
+    for epoch in RAW_TESTED:
         cfg, model = load_model(serve_args, vocab, epoch)
         fn = make_predict_fn(model, cfg, T_ANS, device=dev)
         for s in ("dev", "test"):
@@ -3602,8 +3637,7 @@ def raw_files(dev, bare_ms):
     n_eval = sum(len(splits[s][0]["id"]) for s in ("dev", "test"))
     res["test"] = {
         "samples_per_checkpoint": n_eval, "cli_s": timed_runs,
-        "samples_per_s": {k: n_eval * (RAW_EPOCHS if "every" in k else 1)
-                          / v for k, v in timed_runs.items()},
+        "samples_per_s": {k: n_eval / v for k, v in timed_runs.items()},
         "near_ties": ties, "references_s": time.perf_counter() - t0}
 
     # 5. cli/evaluate: every metric of every result finite
@@ -3615,8 +3649,7 @@ def raw_files(dev, bare_ms):
             "ROUGE_L_F1", "BLEU", "METEOR"}
     prefixes = report["cast"]
     check(sorted(prefixes) == sorted(
-        f"cast_{s}_{e}" for s in ("dev", "test")
-        for e in list(range(RAW_EPOCHS)) + ["avg"]),
+        f"cast_{s}_{e}" for s in ("dev", "test") for e in RAW_TESTED),
         f"evaluate: prefixes {sorted(prefixes)}")
     for prefix, metrics in prefixes.items():
         check(want <= set(metrics) and all(
@@ -4177,16 +4210,17 @@ def data_parallel(dev, card):
 OTHER_MODELS = ("masque", "s2sa", "gttp", "glks", "tmemnet")
 RANK_MODELS = ("masque", "tmemnet")
 COPY_MODELS = ("masque", "gttp", "glks")      # fast_argmax="pallas" combines
-# 128 requests (a one-shot batch, the continuous loops' stream) and 3
-# train steps a model: cut from 256 and 10 to make room for phase 16, and
-# from 6 steps for phase 13b (a GRU model's step takes about 4 s of host
-# time). GLKS keeps 6: after 3 its loss without dropout had risen (16.73 ->
-# 19.03, measured on one H100), and the gate asks it to fall
-OTHER_REQUESTS = 128
-OTHER_TRAIN_STEPS = {"glks": 6}
 # requests of the continuous loops' warm-up runs (a full batch and a
 # refill: every program shape of the loop, the device loop's capture)
 WARM_REQUESTS = B + REFILL
+# B + REFILL requests (the continuous loops' stream: a full batch and a
+# refill; the one-shot batches) and 3 train steps a model: cut from 256
+# and 10 to make room for phase 16, from 6 steps for phase 13b (a GRU
+# model's step takes about 4 s of host time), and from 128 requests for
+# phase 18. GLKS keeps 6: after 3 its loss without dropout had risen
+# (16.73 -> 19.03, measured on one H100), and the gate asks it to fall
+OTHER_REQUESTS = B + REFILL
+OTHER_TRAIN_STEPS = {"glks": 6}
 TMEMNET_LAYERS = 8
 # The kernels of each model's serving path and their launches per B=64
 # greedy batch (40 steps; dense argmax): Masque as CaSE without the
@@ -4480,7 +4514,7 @@ def serve_other(dev, name):
                                   for k, v in f_launches.items() if v},
                               "combine_vs_plain": fvp, "vs_dense": fvd}
 
-    # (d) continuous: the chunk loop and the device loop over 256 requests
+    # (d) continuous: the chunk loop and the device loop over the requests
     res["continuous"] = serve_other_continuous(dev, name, cfg, model, data,
                                                caps, predict)
     del beam, top1
@@ -4538,8 +4572,10 @@ def serve_other_continuous(dev, name, cfg, model, data, caps, predict):
         k: v for k, v in kernel_counts().items() if v})}
     one = {}
     for s in range(0, n, B):
-        out = predict(take(data, slice(s, s + B)))
-        for i, a in enumerate(out["answer"].cpu().numpy()):
+        # a last partial batch filled up from the first requests: every
+        # one-shot batch is B rows, as the chunk loop's
+        out = predict(take(data, np.arange(s, s + B) % n))
+        for i, a in enumerate(out["answer"].cpu().numpy()[:n - s]):
             one[s + i] = (a, None)
     vs_one = answer_agreement(base, one, caps, cfg.eos_id)
     vs_one["identical_answers"] = sum(
@@ -4591,9 +4627,9 @@ def train_other(dev, name):
     """bf16 training over f32 masters (the model's training-attention sites
     and copy attentions through their kernels): the first step's loss and
     gradient against the plain versions (same dropout bits),
-    OTHER_TRAIN_STEPS steps on one batch (the loss must fall; launches
-    counted), one step under no_host_sync. GLKS trains its
-    ds_mle_mce_train losses."""
+    OTHER_TRAIN_STEPS steps on one batch, the last under no_host_sync (the
+    loss must fall; launches counted). GLKS trains its ds_mle_mce_train
+    losses."""
     from case_rg_tpu_torch.config import TrainConfig
     from case_rg_tpu_torch.device import batch_to_device, no_host_sync
     from case_rg_tpu_torch.kernels import additive_attention as aa
@@ -4655,9 +4691,16 @@ def train_other(dev, name):
         ta.LAUNCHES_FWD["rng"] = ta.LAUNCHES_BWD["rng"] = 0
         aa.LAUNCHES = aa.LAUNCHES_BWD = 0
         losses, times = [], []
-        for _ in range(OTHER_TRAIN_STEPS.get(name, 3)):
+        on_card = batch_to_device(batch, dev)
+        n_steps = OTHER_TRAIN_STEPS.get(name, 3)
+        for step in range(n_steps):
+            # the last step on the batch already on the card, under
+            # no_host_sync: an operation that makes the host wait raises
+            # (a step of its own until phase 18 needed the room)
+            last = step == n_steps - 1
             t0 = time.perf_counter()
-            o = trainer.train_step(st, batch, gen)
+            with no_host_sync() if last else contextlib.nullcontext():
+                o = trainer.train_step(st, on_card if last else batch, gen)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
             losses.append(o["total"].item())
@@ -4673,14 +4716,9 @@ def train_other(dev, name):
               and all(c > 0 for c in launches["additive_scores"])
               == (name != "tmemnet"),
               f"{name} train: launches {launches}")
-        on_card = batch_to_device(batch, dev)
-        with no_host_sync():
-            o = trainer.train_step(st, on_card, gen)
-        check(bool(torch.isfinite(o["total"])), f"{name} train: the step "
-              "under no_host_sync")
         res.update(losses=losses, loss_without_dropout=(before, after),
-                   ms_per_step=times[TRAIN_WARMUP:],
-                   launches=launches, sync_check="a step under no_host_sync")
+                   ms_per_step=times[TRAIN_WARMUP:], launches=launches,
+                   sync_check="the last step under no_host_sync")
     finally:
         routed(False)
     return res
@@ -5362,6 +5400,9 @@ def early_exit_export(dev, cfg, model, batches, fixed, fixed_art):
 # the phase runs two replicas on cuda:0 (two threads, a stream each); with
 # more cards also one a card (cuda:0,cuda:1).
 REPLICA_BATCHES = 1           # B=64 batches a decode mode (2 timed)
+# (b)'s continuous requests, the first of phase 7's N_REQUESTS (512 until
+# phase 18 needed the room)
+REPLICA_REQUESTS = 256
 REPLICA_SEED = 21             # their requests
 REPLICA_SAMPLE_SEED = 17
 REPLICA_MODES = {
@@ -5513,29 +5554,16 @@ def host_times(reps, fn, batches) -> dict:
 
 def replica_host_threads(alone, reps, one, fn, batches) -> dict:
     """What the replicas' host threads spend a greedy batch on: one replica
-    against d (``host_times``), then d under the GIL's switch interval at
-    0.1 ms and 20 ms (the default is 5 ms), and with one intra-op CPU
-    thread a replica. A thread that waits for the GIL or for the card is
-    off the CPU: its CPU ms fall short of the wall ms."""
+    against d (``host_times``). A thread that waits for the GIL or for the
+    card is off the CPU: its CPU ms fall short of the wall ms. (The GIL's
+    switch interval at 0.1 and 20 ms and one intra-op thread a replica
+    moved the wall by -2 to +16 %, PERF.md §6; cut to make room for phase
+    18.)"""
     d = len(reps)
-    switch, threads = sys.getswitchinterval(), torch.get_num_threads()
-    res = {"intra_op_threads": threads, "switch_interval_ms": switch * 1e3,
-           "1 replica": host_times(alone, one, batches),
-           f"{d} replicas": host_times(reps, fn, batches)}
-    try:
-        for s in (1e-4, 2e-2):
-            sys.setswitchinterval(s)
-            res[f"{d} replicas, switch {s * 1e3:g} ms"] = host_times(
-                reps, fn, batches)
-    finally:
-        sys.setswitchinterval(switch)
-    reps.map(lambda i, _: torch.set_num_threads(1), [None] * d)
-    try:
-        res[f"{d} replicas, 1 intra-op thread each"] = host_times(
-            reps, fn, batches)
-    finally:
-        reps.map(lambda i, _: torch.set_num_threads(threads), [None] * d)
-    return res
+    return {"intra_op_threads": torch.get_num_threads(),
+            "switch_interval_ms": sys.getswitchinterval() * 1e3,
+            "1 replica": host_times(alone, one, batches),
+            f"{d} replicas": host_times(reps, fn, batches)}
 
 
 def guard_cost(dev, launches, d) -> dict:
@@ -5566,7 +5594,8 @@ def guard_cost(dev, launches, d) -> dict:
 
 def replicas_continuous(dev, cfg, model, reqs, caps, spec, chunk_base,
                         sampled_base):
-    """(b) The N_REQUESTS continuous requests over the replicas of ``spec``
+    """(b) The first REPLICA_REQUESTS continuous requests over the replicas
+    of ``spec``
     (run_continuous_replicated: a loop a replica at B/d rows and REFILL/d
     refills): the chunk loop (launch counters set to 0 just before and read
     just after, as the one-card formula gives them; the replicas' first
@@ -5581,11 +5610,11 @@ def replicas_continuous(dev, cfg, model, reqs, caps, spec, chunk_base,
         run_continuous_device)
     from case_rg_tpu_torch.runtime.replicas import (Replicas,
                                                     run_continuous_replicated)
-    n = len(caps)
+    n = REPLICA_REQUESTS
     reps = Replicas(model, resolve_devices(spec, [B, REFILL]))
     d = len(reps)
     b, r = B // d, REFILL // d
-    keys = sample_keys(n)
+    keys = sample_keys(len(caps))
     res = {}
 
     def over(runs):
@@ -5770,6 +5799,389 @@ def serving_over_cards(dev, cfg, model, reqs, caps, chunk_base,
     return res
 
 
+# ---- phase 18: the pool axis over a device group (runtime/replicas over
+#      groups of M devices, models/case.PooledCaSE) ----
+
+# Serving and testing split each row's passage pool M ways over a group of
+# M devices (the JAX serving mesh's 'model' axis). On a one-card machine
+# the phase runs one group of two on cuda:0 (the shards one after the
+# other on one stream); ``--only-pool`` on several cards runs a group over
+# two cards, and with four two groups of two.
+POOL_M = 2
+POOL_BATCHES = 1               # B=64 batches a decode mode (2 timed)
+POOL_SEED = 23                 # their requests
+POOL_SAMPLE_SEED = 19
+POOL_MODES = {
+    "greedy_dense": {}, "greedy_mxu": {"fast_argmax": "mxu"},
+    "greedy_pallas": {"fast_argmax": "pallas"},
+    "beam4": {"beam_width": BEAM_WIDTH},
+    "sampled": dict(decoding="sample", sample_seed=POOL_SAMPLE_SEED,
+                    **SAMPLE_CONTROLS),
+    "rank_only": {"rank_only": True}}
+# fused_mha sites an encode: the query side, once a group, and the pool
+# side, once a shard (MHA_SITES' rows of B and of B * P)
+POOL_QUERY_SITES = {False: MHA_SITES[(B, LQ, E)] + MHA_SITES[(B, LQ, 5 * E)],
+                    True: 2 * ENC_LAYERS}
+POOL_SHARD_SITES = {False: MHA_SITES[(B * P, LP, E)]
+                    + MHA_SITES[(B * P, LP, 5 * E)],
+                    True: RANK_ONLY_MHA - 2 * ENC_LAYERS}
+# the split against one card (the passage side's GEMMs at B*P/M rows may
+# take other cuBLAS algorithms): rank within 4 bf16 ulps, answer tokens at
+# least 95 % equal; continuous answers at least 99 % equal
+POOL_RANK_ULPS = 4
+POOL_MIN_TOKEN_AGREEMENT = 0.95
+POOL_MIN_CONT_EQUAL = 0.99
+
+
+def pool_specs(only: bool):
+    """(device list, M): one group of two on cuda:0; with ``only`` and
+    more cards, a group over two cards, and two groups of two on four."""
+    n = torch.cuda.device_count()
+    if not only or n == 1:
+        return [("cuda:0,cuda:0", POOL_M)]
+    specs = [("cuda:0,cuda:1", POOL_M)]
+    if n >= 4:
+        specs.append(("cuda:0,cuda:1,cuda:2,cuda:3", POOL_M))
+    return specs
+
+
+def pool_encode_mha(m: int, rank_only: bool = False) -> int:
+    """fused_mha launches of one encode over a group of m."""
+    return POOL_QUERY_SITES[rank_only] + m * POOL_SHARD_SITES[rank_only]
+
+
+def ref(one, bt, d):
+    """``one`` (a one-card predict) on ``bt``'s d row blocks, the outputs
+    on the host in row order: what d groups' predict is held to."""
+    n = B // d
+    outs = [host_out(one(take(bt, slice(i * n, (i + 1) * n))))
+            for i in range(d)]
+    return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+
+def pool_predict(dev, cfg, model, spec, m):
+    """(a) make_replicated_predict over groups of ``m`` in each POOL_MODES
+    mode against the unsplit one-card predict on the same rows (each
+    group's row block; sampled with the same keys): rank within
+    POOL_RANK_ULPS, answer tokens at
+    least POOL_MIN_TOKEN_AGREEMENT equal, and whether every output is
+    equal bit for bit; launches exactly the one-card predict's on the
+    row blocks, with fused_mha at the query side's sites once and the pool
+    side's m times (8 + 11 m an encode, 6 + 8 m
+    rank-only; ``pool_encode_mha``). Then (e): requests/s and device busy
+    ms and idle share of the groups against one card, greedy dense, in
+    turns (no gate)."""
+    from case_rg_tpu_torch.decode.loops import keys_from_seed
+    from case_rg_tpu_torch.device import resolve_devices
+    from case_rg_tpu_torch.runtime.inference import (make_predict_fn,
+                                                     make_replicated_predict)
+    from case_rg_tpu_torch.runtime.replicas import Replicas
+    reps = Replicas(model, resolve_devices(spec, [B], m))
+    d, res = len(reps), {"groups": len(reps), "m": m}
+    rng = np.random.RandomState(POOL_SEED)
+    batches = [make_batch(rng) for _ in range(POOL_BATCHES)]
+    try:
+        for name, kw in POOL_MODES.items():
+            split = make_replicated_predict(reps, cfg, T_ANS, **kw)
+            one = make_predict_fn(model, cfg, T_ANS, device=dev, **kw)
+            keyed = [dict(bt, sample_key=keys_from_seed(
+                POOL_SAMPLE_SEED, B, stream=j).numpy())
+                if kw.get("decoding") == "sample" else bt
+                for j, bt in enumerate(batches)]
+            split(keyed[0]).get()                    # warm-up
+            one(keyed[0])
+            torch.cuda.synchronize()
+            reset_kernel_counts()
+            got = [split(bt).get() for bt in keyed]
+            torch.cuda.synchronize()
+            launches = kernel_counts()
+            reset_kernel_counts()
+            full = [ref(one, bt, d) for bt in keyed]
+            torch.cuda.synchronize()
+            unsplit = kernel_counts()
+            ro = name == "rank_only"
+            want = dict(unsplit,
+                        fused_mha=len(batches) * d * pool_encode_mha(m, ro))
+            check(unsplit["fused_mha"] == len(batches) * d
+                  * pool_encode_mha(1, ro) and launches == want,
+                  f"pool {spec} {name}: launches {launches}, expected "
+                  f"{want} (one card {unsplit})")
+            if name.startswith("greedy") and d == 1:
+                check(launches == {
+                    "fused_mha": pool_encode_mha(m), "stack_step": T_ANS,
+                    "single_query_mha": 2 * DEC_LAYERS * T_ANS,
+                    "additive_scores": 2 * T_ANS,
+                    "combine_copy_mass": T_ANS * (name == "greedy_pallas")},
+                    f"pool {spec} {name}: launches {launches}")
+            outs = [{k: torch.as_tensor(v) for k, v in g.items()}
+                    for g in got]
+            bit = all(torch.equal(o[k], f[k]) for o, f in zip(outs, full)
+                      for k in f)
+            vs = dict(replica_agreement(outs, full), bit_equal=bit)
+            check(vs["rank_max_ulps"] <= POOL_RANK_ULPS,
+                  f"pool {spec} {name} vs one card: {vs}")
+            if "token_agreement" in vs:
+                check(vs["token_agreement"] >= POOL_MIN_TOKEN_AGREEMENT,
+                      f"pool {spec} {name} vs one card: {vs}")
+            res[name] = {"launches": launches, "vs_one_card": vs}
+
+        # (e) requests/s and busy/idle share: one card against the groups,
+        # greedy dense, 2 x POOL_BATCHES batches each, in turns
+        fns = {"one card": make_predict_fn(model, cfg, T_ANS, device=dev),
+               spec: make_replicated_predict(reps, cfg, T_ANS)}
+        run = {"one card": lambda bt: host_out(fns["one card"](bt)),
+               spec: lambda bt: fns[spec](bt).get()}
+        rate = {k: [] for k in fns}
+        timed_batches = (batches * 2)[:2]
+        for k in ("one card", spec, spec, "one card"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for bt in timed_batches:
+                run[k](bt)
+            torch.cuda.synchronize()
+            rate[k].append(len(timed_batches) * B
+                           / (time.perf_counter() - t0))
+        res["requests_per_s"] = rate
+        res["profile"] = {k: {x: v for x, v in profile_device(
+            run[k], batches).items() if x != "top_kernels"} for k in fns}
+    finally:
+        reps.close()
+    return res
+
+
+def pool_continuous(dev, cfg, model, reqs, caps, spec, m, chunk_base):
+    """(b) The N_REQUESTS continuous requests over groups of ``m``
+    (run_continuous_replicated: a loop a group at B/d rows and REFILL/d
+    refills, the encodes split, the decode on each group's first card):
+    the chunk loop (pallas; launches as the one-card formulas give them,
+    fused_mha ``pool_encode_mha(m)`` an encode) and the device loop (ring
+    DL_RING/d; warmed up, then timed; a capture a group, on its first
+    card). Each against phase 7's one-card chunk loop (``chunk_base``):
+    at least POOL_MIN_CONT_EQUAL of the answers equal token for token.
+    (e) Each loop's requests/s on one card, unsplit, beside (no gate)."""
+    from case_rg_tpu_torch.device import resolve_devices
+    from case_rg_tpu_torch.runtime.continuous import (
+        make_continuous_fns, make_device_loop_fns, run_continuous,
+        run_continuous_device)
+    from case_rg_tpu_torch.runtime.replicas import (Replicas,
+                                                    run_continuous_replicated)
+    n = len(caps)
+    reps = Replicas(model, resolve_devices(spec, [B, REFILL], m))
+    alone = Replicas(model, [dev])
+    d = len(reps)
+    b, r = B // d, REFILL // d
+    mb = batch_maker(reqs, caps)
+    res = {}
+
+    def over(runs, k=n):
+        return timed(lambda emit: run_continuous_replicated(
+            items(k), runs, emit, [b + r] * d, replicas=reps), k)
+
+    def one_card(make_run, fns):
+        """(e) the same loop on one card, unsplit: its requests/s after a
+        warm-up run (no gate)."""
+        run = [make_run(fns, B, REFILL)]
+        go = lambda k: timed(lambda emit: run_continuous_replicated(  # noqa
+            items(k), run, emit, [B + REFILL], replicas=alone), k)
+        go(WARM_REQUESTS)
+        return go(n)[1]["requests_per_s"]
+
+    def versus(got, what):
+        equal = sum(np.array_equal(got[i][0], chunk_base[i][0])
+                    for i in range(n))
+        vs = dict(answer_agreement(got, chunk_base, caps, cfg.eos_id),
+                  answers_equal=equal)
+        check(equal >= POOL_MIN_CONT_EQUAL * n,
+              f"pool {spec} {what} vs one card: {vs}")
+        return vs
+
+    try:
+        def chunk_run(f, rows, refill):
+            return lambda src, em: run_continuous(
+                src, mb, *f, batch_size=rows, refill=refill, emit=em,
+                ordered=False)
+
+        def device_run(f, rows, refill):
+            return lambda src, em: run_continuous_device(
+                src, mb, f, batch_size=rows, refill=refill, emit=em,
+                max_len=T_ANS, ordered=False, lookahead=True)
+
+        fns = [make_continuous_fns(x, T_ANS, CHUNK_STEPS,
+                                   fast_argmax="pallas", device=dv)
+               for x, dv in zip(reps.models, reps.devices)]
+        runs = [chunk_run(f, b, r) for f in fns]
+        over(runs, WARM_REQUESTS)                # warm-up
+        reset_kernel_counts()
+        got, stats = over(runs)
+        launches = kernel_counts()
+        steps = CHUNK_STEPS * stats["chunks"]
+        want = {"fused_mha": pool_encode_mha(m) * (d + stats["refills"]),
+                "stack_step": steps, "combine_copy_mass": steps,
+                "single_query_mha": 2 * DEC_LAYERS * steps,
+                "additive_scores": 2 * steps}
+        check(launches == want, f"pool {spec} continuous launches "
+              f"{launches}, expected {want}")
+        res["chunk_loop"] = dict(stats, launches=launches,
+                                 vs_one_card=versus(got, "chunk loop"))
+        res["chunk_loop"]["one_card_requests_per_s"] = one_card(
+            chunk_run, make_continuous_fns(model, T_ANS, CHUNK_STEPS,
+                                           fast_argmax="pallas", device=dev))
+        dfns = [make_device_loop_fns(x, T_ANS, DL_STEPS, DL_K, DL_RING // d,
+                                     fast_argmax="pallas", device=dv)
+                for x, dv in zip(reps.models, reps.devices)]
+        runs = [device_run(f, b, r) for f in dfns]
+        over(runs, WARM_REQUESTS)                # warm-up: the captures
+        caps_ = [c for f in dfns for c in f.captures]
+        replays = [c["replays"] for c in caps_]
+        reset_kernel_counts()
+        got, stats = over(runs)
+        eager = kernel_counts()
+        recorded = {k: sum(c["launches"][k] * (c["replays"] - r0)
+                           for c, r0 in zip(caps_, replays)) for k in eager}
+        launches = {k: eager[k] + recorded[k] for k in eager}
+        steps_run = DL_STEPS * DL_K * stats["megas"]
+        want = {"fused_mha": pool_encode_mha(m) * (d + stats["refills"]),
+                "stack_step": steps_run, "combine_copy_mass": steps_run,
+                "single_query_mha": 2 * DEC_LAYERS * steps_run,
+                "additive_scores": 2 * steps_run}
+        check(len(caps_) == d and launches == want,
+              f"pool {spec} device loop: {len(caps_)} captures, launches "
+              f"{launches} (eager {eager}), expected {want}")
+        res["device_loop"] = dict(stats, launches=launches,
+                                  vs_one_card=versus(got, "device loop"))
+        res["device_loop"]["one_card_requests_per_s"] = one_card(
+            device_run, make_device_loop_fns(
+                model, T_ANS, DL_STEPS, DL_K, DL_RING, fast_argmax="pallas",
+                device=dev))
+    finally:
+        reps.close()
+        alone.close()
+    return res
+
+
+def pool_text(spec, m, text, bit_equal):
+    """(c) cli/serve --pool_shard ``m`` on phase 11's 256 text requests,
+    batched at B=64 (every pool padded to 10 passages), against phase 11's
+    one-card (a): response for response where (a) found the split predict
+    bit-equal to one card (``bit_equal``), else the answers' words at
+    POOL_MIN_TOKEN_AGREEMENT; fused_mha ``pool_encode_mha(m)`` an encode."""
+    ref = text["got"]["a_batched"]
+    got, run = serve_text_mode(
+        text["common"] + ["--device", spec, "--pool_shard", str(m)], [],
+        os.path.join(TEXT_DIR, f"pool_{m}_a.jsonl"))
+    equal = sum(g == w for g, w in zip(got, ref))
+    if bit_equal:
+        same_responses(got, ref, f"pool {spec} batched vs one card")
+    words = sum(a == b for g, w in zip(got, ref)
+                for a, b in zip(g["answer"].split(), w["answer"].split()))
+    total = sum(len(w["answer"].split()) for w in ref)
+    check(len(got) == len(ref) and [g["id"] for g in got]
+          == [w["id"] for w in ref]
+          and words >= POOL_MIN_TOKEN_AGREEMENT * total,
+          f"pool {spec} text: {equal} of {len(ref)} equal, {words} of "
+          f"{total} words")
+    n = run.launches
+    check(n["fused_mha"] > 0 and n["fused_mha"] % pool_encode_mha(m) == 0
+          and n["stack_step"] > 0,
+          f"pool {spec} text: launches {n}")
+    return dict(run.report(len(ref)), responses_equal=equal,
+                words_equal=words, words=total)
+
+
+def pool_test(spec, m, raw):
+    """(d) cli/run --mode test --avg_only --pool_shard --mesh_shape 1,m on
+    phase 13's checkpoints at B=64, batched: its four files (dev and test,
+    .answer and .run) against phase 13's one process (answers byte for
+    byte, runs byte for byte or within same_run_lines' near ties)."""
+    from case_rg_tpu_torch.cli import run as cli_run
+    test_args, out = raw["test_args"], raw["out"]
+    mine = os.path.join(RAW_DIR, f"test_pool_{m}")
+    os.makedirs(mine)
+    os.symlink(os.path.join(out, "model"), os.path.join(mine, "model"))
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    cli_run.main([x if x != out else mine for x in test_args]
+                 + ["--avg_only", "--device", spec, "--pool_shard",
+                    "--mesh_shape", f"1,{m}"])
+    secs = time.perf_counter() - t0
+    launches = kernel_counts()
+    check(launches["fused_mha"] > 0
+          and launches["fused_mha"] % pool_encode_mha(m) == 0
+          and launches["stack_step"] > 0,
+          f"pool {spec} test: launches {launches}")
+    # phase 13's result folder also holds cli/evaluate's merged ".all."
+    # files; cli/run writes one process's ".0." files
+    want_dir, got_dir = os.path.join(out, "result"), os.path.join(mine,
+                                                                  "result")
+    names = sorted(x for x in os.listdir(want_dir) if "_avg.0." in x)
+    check(len(names) == 4 and names == sorted(os.listdir(got_dir)),
+          f"pool {spec} test: files {sorted(os.listdir(got_dir))}, "
+          f"expected {names}")
+    ties = same_result_files(got_dir, want_dir,
+                             f"pool {spec} test vs one process", names)
+    return {"s": secs, "launches": launches, "near_ties": ties,
+            "files": names}
+
+
+def pool_axis(dev, cfg, model, reqs, caps, chunk_base, text, raw,
+              only=False):
+    """Phase 18: (a)-(e) above for every spec of ``pool_specs`` ((c) only
+    where phase 11's text is given, (d) where phase 13's files are)."""
+    auto_routing()
+    t_phase = time.perf_counter()
+    res = {"specs": [s for s, _ in pool_specs(only)],
+           "cards": torch.cuda.device_count()}
+    for spec, m in pool_specs(only):
+        t0 = time.perf_counter()
+        one = {"predict": pool_predict(dev, cfg, model, spec, m)}
+        print(f"pool axis {spec} predict: " + json.dumps(one["predict"]),
+              flush=True)
+        one["continuous"] = pool_continuous(dev, cfg, model, reqs, caps,
+                                            spec, m, chunk_base)
+        print(f"pool axis {spec} continuous: "
+              + json.dumps(one["continuous"]), flush=True)
+        bit = one["predict"]["greedy_dense"]["vs_one_card"]["bit_equal"]
+        one["text"] = pool_text(spec, m, text, bit) if text else "not run"
+        print(f"pool axis {spec} text: " + json.dumps(one["text"]),
+              flush=True)
+        one["test"] = pool_test(spec, m, raw) if raw else "not run"
+        one["s"] = time.perf_counter() - t0
+        print(f"pool axis {spec} test: " + json.dumps(one["test"]),
+              flush=True)
+        res[spec] = one
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
+def pool_only(dev, card, elapsed) -> int:
+    """``--only-pool``: phase 18 with what it needs of the phases before it
+    (the serving model, phase 7's one-card chunk loop over the continuous
+    requests), without phase 11's text and phase 13's files, so (c) and
+    (d) are not run. For a machine with several cards: each spec of
+    ``pool_specs(only=True)``."""
+    from case_rg_tpu_torch.runtime.continuous import (make_continuous_fns,
+                                                      run_continuous)
+    cfg, model = serving_model(dev)
+    reqs, caps = make_requests(np.random.RandomState(3), N_REQUESTS)
+    fns = make_continuous_fns(model, T_ANS, CHUNK_STEPS,
+                              fast_argmax="pallas", device=dev)
+    drive = lambda k: timed(lambda emit: run_continuous(  # noqa: E731
+        items(k), batch_maker(reqs, caps), *fns, batch_size=B,
+        refill=REFILL, emit=emit), k)
+    drive(WARM_REQUESTS)
+    base, _ = drive(N_REQUESTS)
+    elapsed("the one-card references")
+    res = pool_axis(dev, cfg, model, reqs, caps, base, None, None, only=True)
+    print("pool axis: " + json.dumps(
+        {k: res[k] for k in ("specs", "cards", "phase_s")}), flush=True)
+    elapsed("the pool axis")
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def replicas_only(dev, card, elapsed) -> int:
     """``--only-replicas``: phase 17 with what it needs of the phases before
     it (the serving model, the exact-sum witness of "case serving", the
@@ -5804,8 +6216,8 @@ def replicas_only(dev, card, elapsed) -> int:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--only-replicas"]):
-        print("usage: python3 chip_smoke.py [--only-replicas]",
+    if argv not in ([], ["--only-replicas"], ["--only-pool"]):
+        print("usage: python3 chip_smoke.py [--only-replicas | --only-pool]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -5830,11 +6242,12 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
-    if argv == ["--only-replicas"]:
+    if argv in (["--only-replicas"], ["--only-pool"]):
         t0 = time.perf_counter()
         _build.build_all()
         print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
-        return replicas_only(dev, card, elapsed)
+        only = replicas_only if argv == ["--only-replicas"] else pool_only
+        return only(dev, card, elapsed)
     t0 = time.perf_counter()
     phase_build = start_stack_phase_build(_build)
     phase_builds = {n: start_phase_build(_build, n)
@@ -5931,12 +6344,17 @@ def main(argv=None) -> int:
                                    sampled_base,
                                    serve["exact_sums_vs_plain"],
                                    text["ctx"], raw["ctx"])
+        print("serving over cards: " + json.dumps(
+            {k: cards[k] for k in ("specs", "cards", "phase_s")}), flush=True)
+        elapsed("serving over cards")
+        pool = pool_axis(dev, cfg, model, reqs, caps, cont_base,
+                         text["ctx"], raw["ctx"])
     finally:
         shutil.rmtree(RAW_DIR, ignore_errors=True)
         shutil.rmtree(TEXT_DIR, ignore_errors=True)
-    print("serving over cards: " + json.dumps(
-        {k: cards[k] for k in ("specs", "cards", "phase_s")}), flush=True)
-    elapsed("serving over cards")
+    print("pool axis: " + json.dumps(
+        {k: pool[k] for k in ("specs", "cards", "phase_s")}), flush=True)
+    elapsed("the pool axis")
     t0 = time.perf_counter()
     others = other_models(dev)
     print("other models: " + json.dumps({

@@ -7,14 +7,15 @@ py``):
   one process batches exactly as the JAX package's copy does;
 * ``init_distributed`` without torchrun's environment raises naming
   torchrun, and on a card-less host raises for ``cuda``;
-  ``parse_mesh_shape`` takes ``D`` and ``D,1`` and refuses a model axis
-  (ROADMAP item 7b) and a data axis that is not the world size;
-  ``TrainConfig.pool_shard`` and a wrong ``mesh_shape`` are refused by the
-  trainer;
-* ``local_replicas``, the serving mesh's data axis in one process, takes
-  as many devices as the JAX package's ``local_mesh`` puts on its data
-  axis (d = gcd(every batch size, the devices); the geometry cases of
-  ``tests/test_sharding.py``), over the 8 virtual CPU devices of
+  ``parse_mesh_shape`` takes ``D`` and ``D,1``, takes a model axis (the
+  pool axis) for testing and serving and refuses it for training (ROADMAP
+  item "7b (ii) training"), and refuses a data axis that is not the world
+  size; ``TrainConfig.pool_shard`` and a wrong ``mesh_shape`` are refused
+  by the trainer;
+* ``local_groups`` at M = 1, the serving mesh's data axis in one
+  process, takes as many devices as the JAX package's ``local_mesh`` puts
+  on its data axis (d = gcd(every batch size, the devices); the geometry
+  cases of ``tests/test_sharding.py``), over the 8 virtual CPU devices of
   ``tests/conftest.py`` and as many ``cpu`` replicas.
 """
 
@@ -79,10 +80,14 @@ def test_parse_mesh_shape():
     assert mesh.parse_mesh_shape("1") == (1, 1)
     assert mesh.parse_mesh_shape("1,1") == (1, 1)
     assert mesh.parse_mesh_shape("4,1", world=4) == (4, 1)
-    with pytest.raises(ValueError, match="item 7b"):
+    with pytest.raises(ValueError, match=r"item 7b \(ii\) training"):
         mesh.parse_mesh_shape("2,2", world=2)
+    assert mesh.parse_mesh_shape("2,2", world=2, pool=True) == (2, 2)
+    assert mesh.parse_mesh_shape("1,4", pool=True) == (1, 4)
     with pytest.raises(ValueError, match="world size 1"):
         mesh.parse_mesh_shape("2")
+    with pytest.raises(ValueError, match="world size 1"):
+        mesh.parse_mesh_shape("2,2", pool=True)
     for bad in ("", "a", "1,1,1", "0"):
         with pytest.raises(ValueError, match="not 'D' or 'D,M'"):
             mesh.parse_mesh_shape(bad)
@@ -90,8 +95,10 @@ def test_parse_mesh_shape():
 
 def test_trainer_refuses_pool_shard_and_a_wrong_mesh():
     from case_rg_tpu_torch.config import TrainConfig
-    with pytest.raises(ValueError, match="item 7b"):
+    with pytest.raises(ValueError, match=r"item 7b \(ii\) training"):
         W.toy_trainer(pool_shard=True)
+    with pytest.raises(ValueError, match=r"item 7b \(ii\) training"):
+        W.toy_trainer(mesh_shape=(1, 2))
     with pytest.raises(ValueError, match="world size"):
         W.toy_trainer(mesh_shape=(2, 1))
     assert W.toy_trainer(mesh_shape=(1,)).tc == TrainConfig(
@@ -111,7 +118,10 @@ def test_local_replicas_take_local_meshs_data_axis(sizes):
 
     from case_rg_tpu.kernels import decoder_stack as jds
     from case_rg_tpu.runtime.mesh import local_mesh
-    from case_rg_tpu_torch.runtime.mesh import local_replicas
+    from case_rg_tpu_torch.runtime.mesh import local_groups
+
+    def local_replicas(sizes, device):
+        return [g[0] for g in local_groups(sizes, device)]
     n = len(jax.local_devices())
     got = local_replicas(sizes, ",".join(["cpu"] * n))
     saved = jds._DATA_SHARDS       # local_mesh sets the kernel's hint

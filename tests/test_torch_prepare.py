@@ -17,6 +17,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -29,12 +30,60 @@ SHAPES = ["--query_len", "24", "--passage_len", "24", "--num_passage", "4",
           "--answer_len", "10"]
 
 
+def _same_native_path(tries: int = 10, wait_s: float = 1.0) -> None:
+    """Put both packages on the same labels path. The JAX package compiles
+    its C++ library in place (``-o case_rg_tpu/native/_fastprep.so``, not
+    an atomic write), and every xdist worker that collects
+    ``tests/test_native.py`` may start that build: a worker that loaded
+    the half-written file cached the failure and prepares with the
+    pure-Python labels, whose ``token_weight`` differs from the C++ one in
+    the last bits. Load both again, a few times, until they agree."""
+    from case_rg_tpu import native as jnative
+    from case_rg_tpu_torch import native as pnative
+    for _ in range(tries):
+        if jnative.available() == pnative.available():
+            return
+        time.sleep(wait_s)          # the racing build finishes its write
+        for mod in (jnative, pnative):
+            with mod._lock:
+                mod._tried, mod._lib = False, None
+    assert jnative.available() == pnative.available(), (
+        f"the C++ labels library loads in one package and not the other "
+        f"(case_rg_tpu.native {jnative.available()}, case_rg_tpu_torch."
+        f"native {pnative.available()}) after {tries} tries: another "
+        f"process's in-place build of case_rg_tpu/native/_fastprep.so "
+        f"raced this one's load")
+
+
+def _same_files(want: str, got: str, n_npz: int) -> None:
+    """Every file of ``want`` in ``got``, byte for byte (npz arrays by
+    dtype, shape and value)."""
+    names = sorted(os.listdir(want))
+    assert sorted(os.listdir(got)) == names
+    npz = [n for n in names if n.endswith(".npz")]
+    assert len(npz) == n_npz
+    for name in names:
+        if name.endswith(".npz"):
+            a, b = np.load(os.path.join(want, name)), \
+                np.load(os.path.join(got, name))
+            assert sorted(a.files) == sorted(b.files), name
+            for k in a.files:
+                assert a[k].dtype == b[k].dtype, (name, k)
+                np.testing.assert_array_equal(b[k], a[k], err_msg=name + k)
+        else:
+            with open(os.path.join(want, name), "rb") as f:
+                a = f.read()
+            with open(os.path.join(got, name), "rb") as f:
+                assert f.read() == a, name
+
+
 @pytest.fixture(scope="module")
 def corpus(tmp_path_factory):
     """The toy corpus prepared by the JAX CLI and by the port's, twice."""
     from case_rg_tpu.cli.prepare import main as jax_prepare
     from case_rg_tpu_torch.cli.prepare import main as port_prepare
 
+    _same_native_path()
     root = str(tmp_path_factory.mktemp("prepare"))
     make_dataset(root, "toy", n_queries=12, n_passages=20)
     common = ["--data_path", root, "--dataset", "toy"] + SHAPES
@@ -59,24 +108,29 @@ def corpus(tmp_path_factory):
 @pytest.mark.parametrize("which", ["port", "workers"])
 def test_prepare_equals_the_jax_package(corpus, which):
     _, dirs = corpus
-    want, got = dirs["jax"], dirs[which]
-    names = sorted(os.listdir(want))
-    assert sorted(os.listdir(got)) == names
-    npz = [n for n in names if n.endswith(".npz")]
-    assert len(npz) == 18                       # 3 splits x 6 models
-    for name in names:
-        if name.endswith(".npz"):
-            a, b = np.load(os.path.join(want, name)), \
-                np.load(os.path.join(got, name))
-            assert sorted(a.files) == sorted(b.files), name
-            for k in a.files:
-                assert a[k].dtype == b[k].dtype, (name, k)
-                np.testing.assert_array_equal(b[k], a[k], err_msg=name + k)
-        else:
-            with open(os.path.join(want, name), "rb") as f:
-                a = f.read()
-            with open(os.path.join(got, name), "rb") as f:
-                assert f.read() == a, name
+    _same_files(dirs["jax"], dirs[which], 18)       # 3 splits x 6 models
+
+
+def test_python_fallbacks_equal_the_jax_package(corpus, monkeypatch):
+    """Both packages forced onto their pure-Python labels and tokenizer (a
+    host where the C++ library does not load): CaSE's files equal byte for
+    byte, ``token_weight`` included."""
+    from case_rg_tpu import native as jnative
+    from case_rg_tpu.cli.prepare import main as jax_prepare
+    from case_rg_tpu_torch import native as pnative
+    from case_rg_tpu_torch.cli.prepare import main as port_prepare
+
+    root, _ = corpus
+    for mod in (jnative, pnative):
+        monkeypatch.setattr(mod, "_tried", True)
+        monkeypatch.setattr(mod, "_lib", None)
+        assert not mod.available()
+    common = ["--data_path", root, "--dataset", "toy", "--models",
+              "case"] + SHAPES
+    dirs = [os.path.join(root, "fallback", k) for k in ("jax", "port")]
+    jax_prepare(common + ["--out_dir", dirs[0]])
+    port_prepare(common + ["--out_dir", dirs[1]])
+    _same_files(dirs[0], dirs[1], 3)
 
 
 def _arrays(n=11, seed=0):

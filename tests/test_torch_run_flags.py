@@ -39,27 +39,33 @@ def toy_corpus(tmp_path_factory):
     (["--model", "glks", "--mode", "ps_train"], "only defined for masque"),
     (["--multihost"], "start every rank with torchrun"),
     (["--mesh_shape", "2,1"], "not the world size 1"),
-    (["--pool_shard"], "item 7b"), (["--mesh_shape", "1,2"], "item 7b"),
+    (["--pool_shard"], r"item 7b \(ii\) training"),
+    (["--mode", "test", "--pool_shard", "--mesh_shape", "1,2", "--device",
+      "cpu,cpu"], None),
     (["--ckpt_backend", "orbax"], "item 2"), (["--remat", "dots"], None),
     (["--seeded_dropout"], None), (["--bf16_scores", "--bf16_train"], None),
     (["--mesh_shape", "1"], None)],
     ids=["ps_train_glks", "multihost", "mesh_shape", "pool_shard",
-         "model_axis", "orbax", "remat", "seeded_dropout", "bf16_scores",
-         "mesh_shape_one"])
+         "model_axis", "orbax", "remat", "seeded_dropout",
+         "bf16_scores", "mesh_shape_one"])
 def test_refused_flags(toy_corpus, tmp_path, extra, message):
-    """The flags still refused exit naming their ROADMAP item: the pool
-    axis and a model axis (item 7b), orbax (item 2). ``--multihost``
-    outside torchrun's environment exits naming torchrun (never a quiet
-    world of one), and a ``--mesh_shape`` data axis must be the world size
-    (``tests/test_torch_distributed.py`` runs the group itself). The
-    training options (``--remat``, ``--seeded_dropout``, ``--bf16_scores``)
-    and ``--mesh_shape 1`` (a world of one) train an epoch of the toy
-    corpus: the checkpoint is written, its losses are finite and the
-    switch is set."""
+    """The flags still refused exit naming their ROADMAP item: training
+    over the pool axis (item "7b (ii) training"), orbax (item 2).
+    ``--multihost`` outside torchrun's environment exits naming torchrun
+    (never a quiet world of one), and a ``--mesh_shape`` data axis must be
+    the world size (``tests/test_torch_distributed.py`` runs the group
+    itself). The training options (``--remat``, ``--seeded_dropout``,
+    ``--bf16_scores``) and ``--mesh_shape 1`` (a world of one) train an
+    epoch of the toy corpus: the checkpoint is written, its losses are
+    finite and the switch is set. ``--mode test --pool_shard --mesh_shape
+    1,2`` over ``cpu,cpu`` tests that epoch with the pool split in two and
+    writes both splits' result files (their contents against the unsplit
+    run: ``tests/test_torch_pool_cli.py``)."""
     from case_rg_tpu_torch.ops import attention, dropout
     from case_rg_tpu_torch.train.checkpoint import load_checkpoint
     argv = ["--model", "case", "--mode", "train", "--output_path",
             str(tmp_path)]
+    testing = "test" in extra
     for flag in ("--model", "--mode"):
         if flag in extra:
             i = argv.index(flag)
@@ -68,10 +74,17 @@ def test_refused_flags(toy_corpus, tmp_path, extra, message):
         with pytest.raises(SystemExit, match=message):
             run_main(argv + extra)
         return
-    run_main(argv + extra + ["--data_path", toy_corpus["root"], "--dataset",
-                             "toy", "--device", "cpu", "--epoch", "1",
-                             "--batch_size", "4", "--warmup_steps", "1"]
-             + SHAPES)
+    data = ["--data_path", toy_corpus["root"], "--dataset", "toy", "--epoch",
+            "1", "--batch_size", "4", "--warmup_steps", "1"] + SHAPES
+    if testing:
+        run_main(["--model", "case", "--mode", "train", "--output_path",
+                  str(tmp_path), "--device", "cpu"] + data)
+        run_main(argv + extra + data)
+        names = sorted(os.listdir(os.path.join(tmp_path, "result")))
+        assert names == [f"toy_{s}_0.0.{x}" for s in ("dev", "test")
+                         for x in ("answer", "run")]
+        return
+    run_main(argv + extra + ["--device", "cpu"] + data)
     ck = load_checkpoint(str(tmp_path), 0)
     assert ck["step"] > 0
     with open(os.path.join(tmp_path, "metrics.jsonl")) as f:

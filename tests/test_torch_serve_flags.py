@@ -48,7 +48,8 @@ def served(tmp_path_factory):
     (["--from_export", "artifact", "--continuous"],
      "--continuous does not apply"),
     (["--from_export", "artifact", "--bf16"], "--bf16 does not apply"),
-    (["--pool_shard", "2"], "item 7b"),
+    (["--from_export", "artifact", "--pool_shard", "2"],
+     "--pool_shard does not apply"),
     (["--from_export", "artifact", "--bf16_scores"],
      "--bf16_scores does not apply"),
 ], ids=["from_export-continuous", "from_export-bf16", "pool_shard",
@@ -56,7 +57,10 @@ def served(tmp_path_factory):
 def test_refused_flags(served, extra, message):
     """Each refused flag exits with its message. ``--bf16_scores`` is
     refused only with ``--from_export`` (the archive fixes its program);
-    on its own it is served (``test_bf16_scores_is_served``)."""
+    on its own it is served (``test_bf16_scores_is_served``). So is
+    ``--pool_shard``, which serves over a device group
+    (``tests/test_torch_pool_cli.py``) but not an exported program, as in
+    the JAX CLI."""
     with pytest.raises(SystemExit, match=message):
         _port(served, "refused", *extra)
 
